@@ -1,8 +1,10 @@
 """Solver configuration for the PyTorch port.
 
-A copy of :class:`ratilqr_tpu.config.ILEQGConfig` (same fields, defaults and
-validation) that imports nothing of JAX, so configurations carry across the
-two packages by field name (``convert.config_from_dict``).
+Copies of :class:`ratilqr_tpu.config.ILEQGConfig` and
+:class:`ratilqr_tpu.config.CrossEntropyConfig` (same fields, defaults and
+validation) that import nothing of JAX, so configurations carry across the
+two packages by field name (``convert.config_from_dict``,
+``convert.ce_config_from_dict``).
 """
 from __future__ import annotations
 
@@ -36,11 +38,16 @@ class ILEQGConfig:
       scan_unroll: accepted for configuration parity with the JAX package;
         the port's time loops are Python loops or in-kernel loops, so it
         changes nothing.
-      ls_chunk: line-search candidates per batched round.  Only ``1`` (the
-        sequential search) is ported; larger values raise
-        ``NotImplementedError`` in the solver.
-      fold_candidate_eval: the folded-stack candidate evaluation.  Not
-        ported; ``True`` raises ``NotImplementedError`` in the solver.
+      ls_chunk: line-search candidates per batched round: the ladder ε,
+        ελ, …, ελ^(c−1) of every running lane is evaluated as one bank and
+        each lane commits its first acceptable rung, trial for trial equal
+        to the sequential search (``1``, the default).  Cuts the line
+        search's host syncs by up to ``ls_chunk`` per round.
+      fold_candidate_eval: evaluate line-search candidates and the
+        ``initialize!`` value through the closed-loop-folded stack
+        (``ops/approx.approximate_folded``) and the folded evaluating pass,
+        kernel D (``ops/riccati_cuda.riccati_bank_folded``) on CUDA banks.
+        ``fused_candidate_eval`` takes precedence over it.
       fused_candidate_eval: evaluate line-search candidates and the
         ``initialize!`` value with the fused candidate kernel
         (``ops/candidate_cuda.py``) on CUDA banks; on the CPU the same
@@ -77,3 +84,29 @@ class ILEQGConfig:
         _check(0 < self.eps_init <= 1, "eps_init must be in (0, 1]")
         _check(self.eps_init > self.eps_min, "eps_init > eps_min is necessary")
         _check(0 < self.eps_min < 1, "eps_min must be in (0, 1)")
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossEntropyConfig:
+    """RAT iLQR outer Cross-Entropy parameters
+    (``cross_entropy_bilevel_optimization.jl:84-127``).
+
+    ``mu_init``/``sigma_init`` live in the *state* (they adapt across MPC
+    re-plans, ``cross_entropy_bilevel_optimization.jl:66-68``), not here;
+    only their initial values are configured.  ``verbose`` prints the
+    per-generation progress from the host loop.
+    """
+    num_samples: int = 10
+    num_elite: int = 3
+    iter_max: int = 5
+    lam: float = 0.5
+    use_theta_max: bool = False
+    mu_init: float = 1.0
+    sigma_init: float = 2.0
+    verbose: bool = False
+    ileqg: ILEQGConfig = ILEQGConfig()
+
+    def __post_init__(self):
+        _check(0 < self.lam < 1, "lam must be in (0, 1)")
+        _check(self.num_elite <= self.num_samples,
+               "num_elite must be <= num_samples")

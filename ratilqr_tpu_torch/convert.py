@@ -1,11 +1,12 @@
 """Carry configurations and solver results between the JAX package and the
 port.
 
-Configurations cross by ``dataclasses`` field name, results as dictionaries
-of numpy arrays keyed by :class:`ILEQGResult` field name — so a warm start
-computed by one package (``l``, ``L``, ``x``) can seed the other.  Problems
-cross by their constructor arguments: ``unicycle(N, dt, noise, goal)``
-builds the same problem in both packages.
+Configurations cross by ``dataclasses`` field name (a
+``CrossEntropyConfig`` with its nested ``ileqg``), results and the RAT iLQR
+warm-start state as dictionaries of numpy arrays keyed by field name — so a
+warm start computed by one package (``l``, ``L``, ``x``, or a ``CEState``)
+can seed the other.  Problems cross by their constructor arguments:
+``unicycle(N, dt, noise, goal)`` builds the same problem in both packages.
 """
 from __future__ import annotations
 
@@ -15,12 +16,14 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ratilqr_tpu_torch.config import ILEQGConfig
+from ratilqr_tpu_torch.config import CrossEntropyConfig, ILEQGConfig
 from ratilqr_tpu_torch.solvers.ileqg import ILEQGResult
+from ratilqr_tpu_torch.solvers.ratilqr import CEState, RATiLQRResult
 
 
 def config_to_dict(cfg) -> dict:
-    """Field-name dictionary of an ``ILEQGConfig`` of either package."""
+    """Field-name dictionary of an ``ILEQGConfig`` or a
+    ``CrossEntropyConfig`` of either package (nested configs nest)."""
     return dataclasses.asdict(cfg)
 
 
@@ -30,14 +33,44 @@ def config_from_dict(d: Mapping) -> ILEQGConfig:
     return ILEQGConfig(**dict(d))
 
 
+def ce_config_from_dict(d: Mapping) -> CrossEntropyConfig:
+    """The port's ``CrossEntropyConfig`` from a field-name dictionary whose
+    ``ileqg`` entry is a field-name dictionary too; unknown fields raise."""
+    d = dict(d)
+    ileqg = config_from_dict(d.pop("ileqg"))
+    return CrossEntropyConfig(**d, ileqg=ileqg)
+
+
+def _numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
 def result_to_numpy(res) -> dict:
     """``ILEQGResult`` (either package) → dictionary of numpy arrays."""
-    out = {}
-    for name, value in zip(ILEQGResult._fields, res):
-        if isinstance(value, torch.Tensor):
-            value = value.detach().cpu().numpy()
-        out[name] = np.asarray(value)
-    return out
+    return {name: _numpy(v) for name, v in zip(ILEQGResult._fields, res)}
+
+
+def ce_state_to_numpy(state) -> dict:
+    """``CEState`` (either package) → dictionary of numpy arrays."""
+    return {name: _numpy(v) for name, v in zip(CEState._fields, state)}
+
+
+def ce_state_from_numpy(arrays: Mapping, dtype=torch.float64) -> CEState:
+    """Dictionary of numpy arrays → the port's ``CEState``: 0-d CPU
+    tensors in ``dtype``, ``iter_current`` an int."""
+    return CEState(**{
+        name: (int(arrays[name]) if name == "iter_current" else
+               torch.tensor(float(arrays[name]), dtype=dtype))
+        for name in CEState._fields})
+
+
+def ratilqr_result_to_numpy(res) -> dict:
+    """``RATiLQRResult`` (either package) → dictionary of numpy arrays,
+    the state as a nested dictionary."""
+    return {name: (ce_state_to_numpy(v) if name == "state" else _numpy(v))
+            for name, v in zip(RATiLQRResult._fields, res)}
 
 
 def result_from_numpy(arrays: Mapping, device="cpu",

@@ -27,11 +27,15 @@ import torch
 
 from ratilqr_tpu_torch.models import lqr_problem, unicycle
 from ratilqr_tpu_torch.ops import smallmat
-from ratilqr_tpu_torch.ops.approx import (Approximation, NoiseModel,
+from ratilqr_tpu_torch.ops.approx import (Approximation, FoldedApprox,
+                                          NoiseModel, approximate_folded,
                                           approximate_model, noise_model)
 from ratilqr_tpu_torch.ops.candidate_cuda import (candidate_bank,
                                                   candidate_bank_plain)
-from ratilqr_tpu_torch.ops.riccati_cuda import (riccati_bank,
+from ratilqr_tpu_torch.ops.riccati_cuda import (folded_layout,
+                                                launch_folded, riccati_bank,
+                                                riccati_bank_folded,
+                                                riccati_bank_folded_plain,
                                                 riccati_bank_plain)
 from ratilqr_tpu_torch.ops.rollout import (rollout_open_loop,
                                            rollout_open_loop_with_jac)
@@ -282,6 +286,37 @@ def check_candidate(model: str, T: int, B: int, dtype, device
     return _compare(got, want, ref, args[5], [("value", "value")], dtype)
 
 
+def folded_inputs(model: str, T: int, B: int, dtype, device,
+                  shared_w: bool = True):
+    """``(folded stack, theta)``: :func:`approximate_folded` of the
+    candidate fixture (θ from ``THETA_MIX``), with a per-lane noise model
+    unless ``shared_w``."""
+    prob, x_ref, l, L, mu, theta, noise = candidate_inputs(model, T, B,
+                                                           dtype, device)
+    fa = approximate_folded(prob, x_ref, l, L, mu, noise)
+    if not shared_w:
+        W, W_inv, logdet_W = per_lane_noise(noise, B)
+        fa = fa._replace(W=W, W_inv=W_inv, logdet_W=logdet_W)
+    return fa, theta
+
+
+def check_riccati_folded(model: str, T: int, B: int, dtype, device,
+                         shared_w: bool) -> Tuple[float, float]:
+    """Kernel D against :func:`riccati_bank_folded_plain`; every θ = 1e6
+    lane must latch m_fail."""
+    fa, theta = folded_inputs(model, T, B, dtype, device, shared_w)
+    got = riccati_bank_folded(fa, theta)
+    want = riccati_bank_folded_plain(fa, theta)
+    ref = None
+    if dtype == torch.float32:
+        ref = riccati_bank_folded_plain(FoldedApprox(*map(_f64, fa)),
+                                        _f64(theta))
+    out = _compare(got, want, ref, theta, [("value", "value")], dtype)
+    if not bool(want.m_fail[theta == 1e6].all()):
+        raise AssertionError("a θ = 1e6 lane did not latch m_fail")
+    return out
+
+
 def expect_fail_pattern(model: str, T: int, B: int, dtype, device
                         ) -> Tuple[int, int]:
     """Counts of (m_fail, h_fail) lanes the step kernel reports, so a
@@ -309,12 +344,17 @@ def time_ms(fn: Callable[[], object], reps: int = 5) -> float:
 
 
 def kernel_timings(T: int, B: int, dtype, device) -> Dict[str, Tuple]:
-    """``{kernel: (kernel ms, plain ms)}`` on the unicycle at (T, B)."""
+    """``{kernel: (wrapper ms, plain ms)}`` on the unicycle at (T, B); the
+    wrapper time includes its layout copies.  For kernel D the launch
+    alone, on inputs already in its layout, is ``"riccati_folded_launch"``
+    ``(ms, None)``."""
     prob, x0, l, L, theta, mu, noise = bank_inputs("unicycle", T, B, dtype,
                                                    device)
     x, A, Bm = rollout_open_loop_with_jac(prob, x0, l)
     ap = approximate_model(prob, l, x, A, Bm, noise)
     cand = candidate_inputs("unicycle", T, B, dtype, device)
+    fa, fa_theta = folded_inputs("unicycle", T, B, dtype, device)
+    fa_layout = folded_layout(fa, fa_theta)
     pairs = {
         "riccati": (lambda: riccati_bank(ap, theta, mu, slim=True),
                     lambda: riccati_bank_plain(ap, theta, mu, slim=True)),
@@ -323,5 +363,10 @@ def kernel_timings(T: int, B: int, dtype, device) -> Dict[str, Tuple]:
                                                   noise)),
         "candidate": (lambda: candidate_bank(*cand),
                       lambda: candidate_bank_plain(*cand)),
+        "riccati_folded": (lambda: riccati_bank_folded(fa, fa_theta),
+                           lambda: riccati_bank_folded_plain(fa, fa_theta)),
     }
-    return {k: (time_ms(a), time_ms(b)) for k, (a, b) in pairs.items()}
+    out = {k: (time_ms(a), time_ms(b)) for k, (a, b) in pairs.items()}
+    out["riccati_folded_launch"] = (
+        time_ms(lambda: launch_folded(*fa_layout)), None)
+    return out

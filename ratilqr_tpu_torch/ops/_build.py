@@ -89,6 +89,7 @@ _SIGNATURES = {
     "ratilqr_riccati": [_I] * 9 + [_P] * 18 + [_P] * 11 + [_P],
     "ratilqr_step": [_I] * 4 + [_D] * 4 + [_P] * 7 + [_P] * 6 + [_P],
     "ratilqr_candidate": [_I] * 4 + [_D] * 4 + [_P] * 8 + [_P] * 3 + [_P],
+    "ratilqr_riccati_folded": [_I] * 5 + [_P] * 11 + [_P] * 2 + [_P],
 }
 
 

@@ -9,9 +9,10 @@ explicit per-lane masks: each lane escalates its own μ/Δ and restart
 count, as the JAX loop does under ``vmap``.
 
 Dispatch: :func:`dp_optimize` and :func:`dp_evaluate` call
-:func:`ratilqr_tpu_torch.ops.riccati_cuda.riccati_bank`, which launches the
-CUDA kernel for a bank on a CUDA device and runs :func:`_riccati_core`
-for a bank on the CPU.
+:func:`ratilqr_tpu_torch.ops.riccati_cuda.riccati_bank`, which launches
+kernel A for a bank on a CUDA device and runs :func:`_riccati_core` for a
+bank on the CPU; :func:`dp_evaluate_folded` likewise calls
+``riccati_bank_folded`` (kernel D, or :func:`_riccati_folded_core`).
 """
 from __future__ import annotations
 
@@ -272,7 +273,12 @@ def dp_evaluate(approx, L_traj: Tensor, dl_traj: Optional[Tensor] = None,
 
 
 def dp_evaluate_folded(folded, *, theta) -> Tuple[Tensor, Tensor]:
-    """Value-only evaluation over a closed-loop-folded stack; equal to
+    """Value-only evaluation over a closed-loop-folded stack
+    (:class:`~ratilqr_tpu_torch.ops.approx.FoldedApprox`); equal to
     ``dp_evaluate(approx, L, None, slim=True)`` on the unfolded stack.
-    Plain PyTorch on every device (its kernel is not ported yet)."""
-    return _riccati_folded_core(folded, _lanes(theta, folded.q))
+    Runs :func:`ratilqr_tpu_torch.ops.riccati_cuda.riccati_bank_folded`:
+    kernel D on a CUDA device, :func:`_riccati_folded_core` on the CPU.
+    Returns ``(value, m_fail)``."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import riccati_bank_folded
+    bank = riccati_bank_folded(folded, _lanes(theta, folded.q))
+    return bank.value, bank.m_fail

@@ -1,11 +1,17 @@
-"""Kernel A wrapper: the batched Riccati backward pass on CUDA.
+"""Wrappers of the two Riccati kernels on CUDA — counterpart of
+:mod:`ratilqr_tpu.ops.riccati_pallas`.
 
-Counterpart of :func:`ratilqr_tpu.ops.riccati_pallas.riccati_bank`.
-:func:`riccati_bank` keeps the JAX layout ``(B, T, ...)``: for a bank on a
-CUDA device it launches ``csrc/riccati.cu`` (and raises for what the
-kernel does not take); for a bank on the CPU it runs
-:func:`riccati_bank_plain`, the plain PyTorch version of the same
-signature (the ported ``_riccati_core``).
+  - Kernel A, :func:`riccati_bank` (``csrc/riccati.cu``): the batched
+    backward pass, optimizing or evaluating, slim or full; its plain
+    version :func:`riccati_bank_plain` is the ported ``_riccati_core``.
+  - Kernel D, :func:`riccati_bank_folded` (``csrc/riccati_folded.cu``): the
+    value-only evaluating pass over a closed-loop-folded stack; its plain
+    version :func:`riccati_bank_folded_plain` is the ported
+    ``_riccati_folded_core``.
+
+Both keep the JAX layout ``(B, T, ...)``: for a bank on a CUDA device they
+launch the kernel (and raise for what it does not take); for a bank on the
+CPU they run the plain version of the same signature.
 """
 from __future__ import annotations
 
@@ -14,11 +20,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ratilqr_tpu_torch.ops import _build
-from ratilqr_tpu_torch.ops.riccati import _riccati_core
+from ratilqr_tpu_torch.ops.riccati import _riccati_core, _riccati_folded_core
 
 Tensor = torch.Tensor
 KERNEL = "riccati"
-SHAPES = ((3, 2), (2, 2))   # (n, m) the kernel is instantiated for
+KERNEL_FOLDED = "riccati_folded"
+SHAPES = ((3, 2), (2, 2))   # (n, m) kernel A is instantiated for
+FOLDED_SHAPES = (3, 2)      # n kernel D is instantiated for
 
 
 class BankDP(NamedTuple):
@@ -155,3 +163,77 @@ def _riccati_bank_cuda(approx, theta, mu, L_in, dl_in, slim):
         return BankSlim(value, back(L), back(dl), m_fail, h_fail)
     return BankDP(back(s), back(s_vec), back(S), back(g), back(G), back(H),
                   back(L), back(dl), m_fail, h_fail)
+
+
+class BankFolded(NamedTuple):
+    """Folded evaluation of a bank."""
+    value: Tensor   # (B,)
+    m_fail: Tensor  # (B,) bool: neurotic breakdown
+
+
+def riccati_bank_folded_plain(fa, theta: Tensor) -> BankFolded:
+    """Plain PyTorch version: :func:`~ratilqr_tpu_torch.ops.riccati.
+    _riccati_folded_core` over the bank."""
+    return BankFolded(*_riccati_folded_core(fa, theta))
+
+
+def riccati_bank_folded(fa, theta: Tensor) -> BankFolded:
+    """Value-only evaluating pass over a closed-loop-folded bank ``fa``
+    (:class:`~ratilqr_tpu_torch.ops.approx.FoldedApprox`, noise model shared
+    ``(T, n, n)`` or per-lane ``(B, T, n, n)``) with ``theta (B,)``."""
+    if fa.q.device.type == "cpu":
+        return riccati_bank_folded_plain(fa, theta)
+    if fa.q.device.type != "cuda":
+        raise NotImplementedError(f"no folded Riccati kernel for device "
+                                  f"{fa.q.device}")
+    return launch_folded(*folded_layout(fa, theta))
+
+
+def folded_layout(fa, theta: Tensor):
+    """Check a folded bank against what kernel D takes and copy it to the
+    kernel's lane-minor layout; returns the arguments of
+    :func:`launch_folded`."""
+    Bn, T, n = fa.A.shape[0], fa.A.shape[1], fa.A.shape[-1]
+    dtype, device = fa.A.dtype, fa.A.device
+    if n not in FOLDED_SHAPES:
+        raise NotImplementedError(f"riccati_folded kernel: n = {n} is not "
+                                  f"instantiated (have {FOLDED_SHAPES})")
+    w_shared = fa.W.dim() == 3
+    expect = {"q": (Bn, T), "q_vec": (Bn, T, n), "Q": (Bn, T, n, n),
+              "A": (Bn, T, n, n),
+              "W": (T, n, n) if w_shared else (Bn, T, n, n),
+              "W_inv": (T, n, n) if w_shared else (Bn, T, n, n),
+              "logdet_W": (T,) if w_shared else (Bn, T),
+              "q_term": (Bn,), "q_vec_term": (Bn, n), "Q_term": (Bn, n, n)}
+    fields = dict(zip(fa._fields, fa), theta=theta)
+    expect["theta"] = (Bn,)
+    for name, shape in expect.items():
+        x = fields[name]
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != device:
+            raise ValueError(f"riccati_folded kernel: {name} is "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"expected {shape} {dtype} on {device}")
+    lm = _build.lane_minor
+    noise = ((fa.W.contiguous(), fa.W_inv.contiguous(),
+              fa.logdet_W.contiguous()) if w_shared else
+             (lm(fa.W), lm(fa.W_inv), lm(fa.logdet_W)))
+    ins = (lm(fa.q), lm(fa.q_vec), lm(fa.Q), lm(fa.A), *noise,
+           fa.q_term.contiguous(), lm(fa.q_vec_term), lm(fa.Q_term),
+           theta.contiguous())
+    return ins, w_shared
+
+
+def launch_folded(ins, w_shared: bool) -> BankFolded:
+    """Launch kernel D on arguments prepared by :func:`folded_layout`."""
+    n, T, Bn = ins[3].shape[-3], ins[0].shape[0], ins[0].shape[-1]
+    value = torch.empty(Bn, dtype=ins[0].dtype, device=ins[0].device)
+    m_fail = torch.empty(Bn, dtype=torch.bool, device=value.device)
+    lib = _build.library()
+    with torch.cuda.device(value.device):
+        rc = lib.ratilqr_riccati_folded(
+            _build.dtype_code(value.dtype), n, Bn, T, int(w_shared),
+            *map(_build.ptr, ins), _build.ptr(value), _build.ptr(m_fail),
+            _build.stream_of(value))
+    _build.check(rc, KERNEL_FOLDED)
+    _build.launch_counts[KERNEL_FOLDED] += 1
+    return BankFolded(value, m_fail)

@@ -12,13 +12,17 @@ a host loop over per-lane masks with one device sync per round:
     (:func:`ratilqr_tpu_torch.ops.riccati.mu_restart_loop`);
   - line search: per-lane ``accepted``/``count`` masks, the acceptance rule
     ``isapprox(new, cur) | new < cur`` and the forced accept below ``ε_min``;
+    ``ls_chunk = c`` evaluates c rungs of the ε ladder per round;
   - adaptive ε_init: the restore loop with its underflow guard ``e > 0``.
 
 Lanes whose results a round discards (finished lanes, lanes whose
 optimizing DP failed) are left out of the inner loops, which changes no
-result.  On a CUDA device the DP passes run kernel A (default config) or
-the fused kernels B and C (``fused_step_optimize`` /
-``fused_candidate_eval``); on the CPU they run their plain versions.
+result.  On a CUDA device the DP passes run kernel A (default config), the
+fused kernels B and C (``fused_step_optimize`` / ``fused_candidate_eval``)
+or, with ``fold_candidate_eval``, the line search's folded evaluations run
+kernel D; on the CPU they run their plain versions.  Candidate evaluation
+follows the JAX precedence: ``fused_candidate_eval``, then
+``fold_candidate_eval``, then the unfolded composition.
 """
 from __future__ import annotations
 
@@ -27,11 +31,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ratilqr_tpu_torch.config import ILEQGConfig
-from ratilqr_tpu_torch.ops.approx import (NoiseModel, approximate_model,
-                                          noise_model)
+from ratilqr_tpu_torch.ops.approx import (NoiseModel, approximate_folded,
+                                          approximate_model, noise_model)
 from ratilqr_tpu_torch.ops.candidate_cuda import candidate_bank
-from ratilqr_tpu_torch.ops.riccati import (dp_evaluate, dp_optimize,
-                                           select)
+from ratilqr_tpu_torch.ops.riccati import (dp_evaluate, dp_evaluate_folded,
+                                           dp_optimize, select)
 from ratilqr_tpu_torch.ops.rollout import (rollout_feedback,
                                            rollout_feedback_with_jac,
                                            rollout_open_loop,
@@ -75,15 +79,6 @@ class ILEQGState(NamedTuple):
     failed: Tensor
 
 
-def _check_config(config: ILEQGConfig) -> None:
-    if config.ls_chunk > 1:
-        raise NotImplementedError("ls_chunk > 1 (the batched ε ladder) is "
-                                  "not ported yet; use ls_chunk=1")
-    if config.fold_candidate_eval:
-        raise NotImplementedError("fold_candidate_eval is not ported yet; "
-                                  "use fused_candidate_eval or neither")
-
-
 def _push_hist(hist: Tensor, count: Tensor, valid: Tensor, eps: Tensor,
                dval: Tensor):
     """Append (ε, Δvalue) per lane where ``valid`` to the saturating
@@ -105,51 +100,93 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
                 state: ILEQGState, x_ref: Tensor, dl: Tensor, theta: Tensor,
                 noise: NoiseModel, active: Optional[Tensor] = None
                 ) -> ILEQGState:
-    """Backtracking line search (``ileqg.jl:494-592``) over a bank."""
-    lam = config.lam
+    """Backtracking line search (``ileqg.jl:494-592``) over a bank.
 
-    def eval_candidate(eps):
-        l_cand = state.l + eps[:, None, None] * dl
+    Each round evaluates the ladder ε, ελ, …, ελ^(c−1) (``c =
+    config.ls_chunk``) of every running lane as one bank of c·R candidates
+    and commits each lane's first acceptable rung — the JAX ``chunk_round``
+    (``ileqg.py:206-249``), which for ``c = 1`` is its sequential ``trial``.
+    Trial for trial it equals the sequential search: rungs past a lane's
+    first take or past its ``ls_max_trials`` budget are neither counted nor
+    recorded.  Only the running lanes are evaluated.
+    """
+    lam = config.lam
+    c = config.ls_chunk
+    Bn = state.value.shape[0]
+    dtype = state.value.dtype
+    rungs = lam ** torch.arange(c, dtype=dtype, device=state.value.device)
+    steps = torch.arange(c, device=rungs.device)
+
+    def eval_candidate(lanes, eps):
+        """Values and ``evaluated`` flags of candidates ``l + ε·dl`` of the
+        bank lanes ``lanes`` (None: every lane, in order)."""
+        def pick(x):
+            return x if lanes is None else x[lanes]
+        L, mu, th, xr = pick(state.L), pick(state.mu), pick(theta), pick(x_ref)
+        l_cand = pick(state.l) + eps[:, None, None] * pick(dl)
         if config.fused_candidate_eval:
-            value_new, fail = candidate_bank(problem, x_ref, l_cand, state.L,
-                                             state.mu, theta, noise)
+            value_new, fail = candidate_bank(problem, xr, l_cand, L, mu, th,
+                                             noise)
+        elif config.fold_candidate_eval:
+            folded = approximate_folded(problem, xr, l_cand, L, mu, noise)
+            value_new, fail = dp_evaluate_folded(folded, theta=th)
         else:
             x_new, u_new, A_new, B_new = rollout_feedback_with_jac(
-                problem, x_ref, l_cand, state.L)
+                problem, xr, l_cand, L)
             approx = approximate_model(problem, u_new, x_new, A_new, B_new,
                                        noise)
-            value_new, fail = dp_evaluate(approx, state.L, None, theta=theta,
-                                          mu=state.mu, slim=True)
+            value_new, fail = dp_evaluate(approx, L, None, theta=th, mu=mu,
+                                          slim=True)
         return value_new, ~fail
 
-    eps = state.eps_init_cur
+    eps = state.eps_init_cur.clone()
     count = torch.zeros_like(state.iterations)
     accepted = torch.zeros_like(state.done)
     eps_acc = torch.zeros_like(eps)
-    value_c = state.value
-    hist, hist_n = state.eps_hist, state.eps_count
+    value_c = state.value.clone()
+    hist, hist_n = state.eps_hist.clone(), state.eps_count.clone()
     while True:
         running = ~accepted & (count < config.ls_max_trials)
         if active is not None:
             running = running & active
-        if not bool(running.any()):
+        r = running.nonzero().squeeze(1)
+        R = r.numel()
+        if R == 0:
             break
-        value_new, evaluated = eval_candidate(eps)
-        hist_new, hist_n_new = _push_hist(hist, hist_n, evaluated, eps,
-                                          value_new - state.value)
-        accept = evaluated & (isapprox(value_new, state.value)
-                              | (value_new < state.value))
-        eps_next = torch.where(accept, eps, eps * lam)
-        # ε_min reached → accept the already-evaluated candidate anyway.
-        forced = evaluated & ~accept & (eps_next < config.eps_min)
-        take = running & (accept | forced)
-        eps_acc = torch.where(take, eps, eps_acc)
-        value_c = torch.where(take, value_new, value_c)
-        accepted = accepted | take
-        hist = select(running, hist_new, hist)
-        hist_n = torch.where(running, hist_n_new, hist_n)
-        eps = torch.where(running, eps_next, eps)
-        count = count + running.to(count.dtype)
+        ladder = eps[r, None] * rungs                          # (R, c)
+        every = c == 1 and R == Bn
+        values, evaluated = eval_candidate(
+            None if every else r.repeat_interleave(c), ladder.reshape(-1))
+        values, evaluated = values.reshape(R, c), evaluated.reshape(R, c)
+        value0, cnt = state.value[r, None], count[r]
+
+        in_budget = cnt[:, None] + steps < config.ls_max_trials
+        accept = evaluated & (isapprox(values, value0) | (values < value0))
+        forced = evaluated & ~accept & (ladder * lam < config.eps_min)
+        take = (accept | forced) & in_budget
+        has_take = take.any(1)
+        first = take.to(torch.int8).argmax(1, keepdim=True)   # 0 if none
+        n_budget = torch.clamp(config.ls_max_trials - cnt, max=c)
+        n_exec = torch.where(has_take, first[:, 0].to(cnt.dtype) + 1,
+                             n_budget)
+
+        h, hn = hist[r], hist_n[r]
+        for j in range(c):   # history pushes in rung order
+            h, hn = _push_hist(h, hn, evaluated[:, j] & (j < n_exec),
+                               ladder[:, j], values[:, j] - value0[:, 0])
+        hist[r], hist_n[r] = h, hn
+
+        eps_first = ladder.gather(1, first)[:, 0]
+        accept_first = accept.gather(1, first)[:, 0]
+        eps_next = torch.where(
+            has_take, torch.where(accept_first, eps_first, eps_first * lam),
+            eps[r] * lam ** n_exec.to(dtype))
+        eps_acc[r] = torch.where(has_take, eps_first, eps_acc[r])
+        value_c[r] = torch.where(has_take, values.gather(1, first)[:, 0],
+                                 value_c[r])
+        accepted[r] = accepted[r] | has_take
+        eps[r] = eps_next
+        count[r] = cnt + n_exec
 
     # Re-materialize the accepted candidate's realized controls (lanes that
     # accepted nothing have eps_acc = 0 and keep the pre-search state).
@@ -222,6 +259,10 @@ def initialize(problem: RiskSensitiveProblem, config: ILEQGConfig,
         x_ref0 = x0[:, None, :].expand(Bn, T + 1, n).contiguous()
         value0, fail = candidate_bank(problem, x_ref0, u_init, L, zeros,
                                       theta, noise)
+    elif config.fold_candidate_eval:
+        # The open-loop fold (L = 0) is the raw (q, q_vec, Q, A) stack.
+        folded = approximate_folded(problem, x0, u_init, noise=noise)
+        value0, fail = dp_evaluate_folded(folded, theta=theta)
     else:
         x, A, B = rollout_open_loop_with_jac(problem, x0, u_init)
         approx = approximate_model(problem, u_init, x, A, B, noise)
@@ -244,7 +285,6 @@ def solve_bank(problem: RiskSensitiveProblem, config: ILEQGConfig,
                noise: Optional[NoiseModel] = None) -> ILEQGResult:
     """Solve a bank: ``x0 (B, n)``, ``u_init (B, T, m)``, ``theta (B,)``;
     iLQG where θ = 0, iLEQG where θ > 0 (``ileqg.jl:635-659``)."""
-    _check_config(config)
     if noise is None:
         noise = noise_model(problem, u_init.shape[1], x0.dtype, x0.device)
     state = initialize(problem, config, x0, u_init, theta, noise)
@@ -279,7 +319,6 @@ def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
     the dtype of ``x0``.  The only state kept between calls is the
     problem's noise model per (horizon, dtype, device).
     """
-    _check_config(config)
     noise_cache = {}
 
     def bank(x0, u_init, thetas) -> ILEQGResult:

@@ -1,5 +1,6 @@
-"""The three CUDA kernels against their plain PyTorch versions, on a CUDA
-device (skipped without one).
+"""The four CUDA kernels against their plain PyTorch versions, the
+folded-evaluation bank against the fused-candidate bank, and the host-sync
+and busy-time helpers, on a CUDA device (skipped without one).
 
 This file imports no JAX, so it also runs on a machine that has none:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -47,6 +48,42 @@ def test_candidate_kernel_matches_plain(device, model, T, B, dtype):
     kc.check_candidate(model, T, B, dtype, device)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shared_w", [True, False])
+@pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5)])
+def test_riccati_folded_kernel_matches_plain(device, model, T, B, shared_w,
+                                             dtype):
+    kc.check_riccati_folded(model, T, B, dtype, device, shared_w)
+
+
+def test_fold_path_bank_matches_fused_candidate_bank(device):
+    """``fold_candidate_eval`` (kernel D, chunked ε ladder) and
+    ``fused_candidate_eval`` (kernel C) evaluate the same candidates."""
+    from ratilqr_tpu_torch import ILEQGConfig, make_batched_solver
+    from ratilqr_tpu_torch.models import unicycle
+    f64 = torch.float64
+    prob = unicycle(N=20, dtype=f64, device=device, analytic_jacobians=True)
+    thetas = torch.cat([torch.linspace(0.0, 0.02, 63, dtype=f64),
+                        torch.tensor([1e6], dtype=f64)]).to(device)
+    x0 = torch.zeros(3, dtype=f64, device=device)
+    u0 = torch.zeros((20, 2), dtype=f64, device=device)
+    base = dict(iter_max=20, adaptive_eps_init=True, eps_history_cap=0,
+                fused_step_optimize=True)
+    _build.reset_launch_counts()
+    fold = make_batched_solver(prob, ILEQGConfig(
+        **base, fold_candidate_eval=True, ls_chunk=4))(x0, u0, thetas)
+    assert _build.launch_counts["riccati_folded"] > 0
+    assert _build.launch_counts["candidate"] == 0
+    fused = make_batched_solver(prob, ILEQGConfig(
+        **base, fused_candidate_eval=True))(x0, u0, thetas)
+    assert torch.equal(fold.failed, fused.failed)
+    assert bool(fold.failed[-1]) and not bool(fold.failed[:-1].any())
+    assert torch.equal(fold.iterations, fused.iterations)
+    ok = ~fused.failed
+    torch.testing.assert_close(fold.value[ok], fused.value[ok], rtol=1e-9,
+                               atol=0)
+
+
 def test_fixtures_fail_where_they_should(device):
     m_fail, _ = kc.expect_fail_pattern("unicycle", 20, 10, torch.float32,
                                        device)
@@ -71,3 +108,28 @@ def test_wrappers_count_launches_and_reject_what_they_cannot_run(device):
     with pytest.raises(NotImplementedError):
         step_optimize_bank(prob, x0.half(), l.half(), theta.half(),
                            mu.half(), noise)
+
+
+def test_sync_count_and_device_busy(device):
+    """The two measurements chip_smoke.py prints for the RAT iLQR path."""
+    from ratilqr_tpu_torch.utils.profiling import count_host_syncs, device_busy
+    x = torch.ones(1 << 20, device=device)
+
+    def no_sync():
+        x.mul_(2.0).add_(-1.0)
+
+    def two_syncs():
+        float(x.sum())
+        float(x.max())
+
+    no_sync()     # first launches outside the counted blocks
+    two_syncs()
+    with count_host_syncs() as none:
+        no_sync()
+    assert none.n == 0
+    with count_host_syncs() as syncs:
+        two_syncs()
+    assert syncs.n == 2
+    out, wall, busy = device_busy(lambda: x.cumsum(0))
+    assert float(out[-1]) == float(1 << 20)
+    assert 0 < busy <= wall

@@ -113,9 +113,3 @@ def test_config_and_result_cross_packages():
     back = convert.result_to_numpy(res)
     assert set(back) == set(arrays)
 
-
-@pytest.mark.parametrize("kw", [dict(ls_chunk=4),
-                                dict(fold_candidate_eval=True)])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        P.make_batched_solver(tunicycle(N=5), P.ILEQGConfig(**kw))
