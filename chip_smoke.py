@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the iLEQG solver bank, RAT iLQR and the MPC
-driver) on one CUDA card.
+"""Drive the PyTorch port (the iLEQG solver bank on the unicycle and the
+n=12 quadrotor, RAT iLQR and the MPC driver) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Phases (each prints a line and raises on failure):
   1. device: the card's name and power limit; exits non-zero without CUDA;
-  2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc;
+  2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
+     per source, in parallel) and prints each kernel's registers, spills
+     and stack frame;
   3. every kernel against its plain PyTorch version on the card, float32
-     and float64, at the unicycle T=100 and LQR T=7 with B=5 and B=4,099
-     (kernel D with a shared and a per-lane noise model);
-  4. the bank's path at full width — the warm-started unicycle bank
-     (T=100, bench configuration) cold and warm at B=16,384, warm at
-     B=262,144, and the default configuration at B=1,024 — with the
-     kernels' launch counts read around it;
+     and float64, at the unicycle T=100, the LQR T=7 and the quadrotor
+     T=50 with B=5 and B=4,099 (kernel D with a shared and a per-lane
+     noise model), and the θ = 1e6 lanes latching m_fail;
+  4. the unicycle bank at full width — the warm-started bank (T=100, bench
+     configuration) cold and warm at B=16,384, warm at B=262,144, and a
+     warm re-plan of at most 3 iterations in the default configuration at
+     B=1,024 — with the kernels' launch counts read around it;
   5. 64 lanes of the B=16,384 bank again on the CPU through the plain path;
-  6. the RAT iLQR path: ``MPCDriver`` re-planning the unicycle (T=100,
-     f32) five times through ``RATiLQRSolver`` and through the single-call
+  6. the model-size bank path: the quadrotor (n=12, m=4, T=50, f32) through
+     ``make_batched_solver`` in three configurations — (a) default step and
+     fused candidate (kernels A + C), cold and warm at B=16,384; (b) fused
+     step and candidate (B + C), cold and warm at B=16,384 and warm at
+     B=262,144; (c) RAT iLQR's inner configuration (B + D), warm at
+     B=16,384 — with the launch counts read around each run, and 64 lanes
+     of (b) in float64 on the card and on the CPU through the plain path;
+  7. the RAT iLQR path: ``MPCDriver`` re-planning the unicycle (T=100,
+     f32) four times through ``RATiLQRSolver`` and through the single-call
      ``ratilqr_jit.solve``, on the folded candidate evaluation (kernel D)
      and the fused step (kernel B), with the launch counts read around
      each path;
-  7. one CE generation at width (16,384 θ samples), timed and profiled
+  8. one CE generation at width (16,384 θ samples), timed and profiled
      (device idle share), and 64 of its θ again in float64 on the card and
      on the CPU through the plain path;
-  8. timings: each kernel against its plain version, and warm solves/s.
-The last line is the JSON device record.
+  9. timings: each kernel's wrapper, its launch alone and its plain
+     version, beside its bound, on the unicycle and the quadrotor; warm
+     solves/s.
+The line before the card's name is the JSON kernel record; the last line
+is the JSON device record.
 """
 import json
 import subprocess
@@ -37,7 +50,7 @@ import torch
 from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
                                RATiLQRSolver, kernel_check,
                                make_batched_solver)
-from ratilqr_tpu_torch.models import unicycle
+from ratilqr_tpu_torch.models import quadrotor, unicycle
 from ratilqr_tpu_torch.ops import _build
 from ratilqr_tpu_torch.solvers import ratilqr, ratilqr_jit
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
@@ -51,15 +64,29 @@ X_MPC = (0.05, -0.03, 0.01)
 BENCH_CONFIG = ILEQGConfig(iter_max=100, d_tol=1e-2, adaptive_eps_init=True,
                            eps_history_cap=0, fused_candidate_eval=True,
                            fused_step_optimize=True)
+# The model-size bank path, benchmarks/run_all.py:278-306: quadrotor(N=50)
+# in f32, x0 = 0, u0 = 0, θ = linspace(0, 0.01, B), warm-started from the
+# cold solve's l[0]; (c) is RAT iLQR's inner configuration below.
+QUAD_T = 50
+QUAD_THETA_MAX = 0.01
+QUAD_BASE = dict(eps_history_cap=0, adaptive_eps_init=True,
+                 fused_candidate_eval=True)
 # RAT iLQR: examples/mpc_unicycle.py:56-57 at the bench horizon, on the
 # folded candidate evaluation with the chunked ε ladder.
+RAT_INNER = ILEQGConfig(iter_max=30, adaptive_eps_init=True,
+                        eps_history_cap=0, fused_step_optimize=True,
+                        fold_candidate_eval=True, ls_chunk=4)
+QUAD_CONFIGS = {   # name: (config, the kernels its path must run)
+    "a": (ILEQGConfig(**QUAD_BASE), ("riccati", "candidate")),
+    "b": (ILEQGConfig(**QUAD_BASE, fused_step_optimize=True),
+          ("step", "candidate")),
+    "c": (RAT_INNER, ("step", "riccati_folded")),
+}
 RAT_CONFIG = CrossEntropyConfig(
     num_samples=10, num_elite=3, iter_max=5, mu_init=0.005, sigma_init=0.01,
-    ileqg=ILEQGConfig(iter_max=30, adaptive_eps_init=True, eps_history_cap=0,
-                      fused_step_optimize=True, fold_candidate_eval=True,
-                      ls_chunk=4))
+    ileqg=RAT_INNER)
 KL_BOUND = 0.05
-N_REPLANS = 5
+N_REPLANS = 4
 B_CE = 16_384   # one CE generation at the bank size of the bank's path
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "riccati": ("ratilqr_tpu_torch/csrc/riccati.cu",
@@ -71,8 +98,12 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "riccati_folded": ("ratilqr_tpu_torch/csrc/riccati_folded.cu",
                        "ratilqr_tpu/ops/riccati_pallas.py:581"),
 }
+SHAPES = {   # the (n, m) each kernel runs on the paths of this script
+    "riccati": "(3,2) (2,2) (12,4)", "step": "unicycle, LQR, quadrotor",
+    "candidate": "unicycle, LQR, quadrotor", "riccati_folded": "n=3 2 12"}
 BANK_KERNELS = ("riccati", "step", "candidate")   # phase 4's path
-RAT_KERNELS = ("step", "riccati_folded")           # phase 6's path
+RAT_KERNELS = ("step", "riccati_folded")           # phase 7's path
+MODEL_DIMS = {"unicycle": (3, 2), "quadrotor": (12, 4)}
 
 
 def card() -> str:
@@ -91,10 +122,22 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
+def build():
+    """Phase 2: build the kernels; prints each source's nvcc time and each
+    kernel's ptxas report."""
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} "
+          f"({lib_path.parent.name})", flush=True)
+    for line in _build.report(lib_path):
+        print("  " + line, flush=True)
+
+
 def check_kernels(device):
     """Phase 3: returns the largest float32 difference per kernel."""
     err32 = {}
-    cases = [("unicycle", T), ("lqr", 7)]
+    cases = [("unicycle", T), ("lqr", 7), ("quadrotor", QUAD_T)]
     for dtype in (torch.float32, torch.float64):
         worst = {name: (0.0, 0.0) for name in KERNELS}
 
@@ -115,28 +158,47 @@ def check_kernels(device):
                 keep("step", kernel_check.check_step(model, horizon, B, dtype,
                                                      device))
         f32 = dtype == torch.float32
-        print(f"kernels vs plain, {dtype}, unicycle T=100 and LQR T=7, "
-              f"B=5 and B=4099, {len(kernel_check.RICCATI_VARIANTS)} riccati "
-              "variants: agree; max |kernel - plain|"
+        print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7 and "
+              f"quadrotor T={QUAD_T}, B=5 and B=4099, "
+              f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
+              "max |kernel - plain|"
               + (" (plain's own error vs float64)" if f32 else "") + ": "
               + ", ".join(f"{k} {e:.3e}" + (f" ({p:.3e})" if f32 else "")
                           for k, (e, p) in worst.items()), flush=True)
         if f32:
             err32 = {k: e for k, (e, _) in worst.items()}
-    m_fail, _ = kernel_check.expect_fail_pattern("unicycle", T, 4_099,
-                                                 torch.float32, device)
-    expect = int(np.sum(np.resize(kernel_check.THETA_MIX, 4_099) == 1e6))
-    assert m_fail == expect, f"{m_fail} m_fail lanes, expected {expect}"
+    kernel_check.clear_caches()
+    for model, horizon in (("unicycle", T), ("quadrotor", QUAD_T)):
+        m_fail, _ = kernel_check.expect_fail_pattern(model, horizon, 4_099,
+                                                     torch.float32, device)
+        expect = int(np.sum(np.resize(kernel_check.THETA_MIX, 4_099) == 1e6))
+        assert m_fail == expect, (f"{model}: {m_fail} m_fail lanes, "
+                                  f"expected {expect}")
+        print(f"fail latching, {model}: {m_fail} θ=1e6 lanes of 4099 latch "
+              "m_fail in kernel B", flush=True)
     _, h_fail = kernel_check.expect_fail_pattern("negative_curvature", 7, 5,
                                                  torch.float32, device)
     assert h_fail > 0, "the negative-curvature fixture must fail H"
-    print(f"fail latching: {m_fail} θ=1e6 lanes latch m_fail; "
-          f"{h_fail}/5 negative-curvature lanes latch h_fail", flush=True)
+    print(f"fail latching: {h_fail}/5 negative-curvature lanes latch h_fail",
+          flush=True)
     return err32
 
 
+def check_result(name, res, B, horizon, m, secs):
+    assert res.value.shape == (B,) and res.l.shape == (B, horizon, m)
+    n_failed = int(res.failed.sum())
+    assert n_failed == 0, f"{name} B={B}: {n_failed} failed lanes"
+    assert bool(torch.isfinite(res.value).all()), f"{name} B={B}"
+    it = res.iterations
+    print(f"{name} B={B}: 0 failed, values "
+          f"{float(res.value.min()):.6f}..{float(res.value.max()):.6f}, "
+          f"iterations {int(it.min())}..{int(it.max())}, {secs:.3f} s, "
+          f"{B / secs:.1f} solves/s (host clock)", flush=True)
+
+
 def main_path(device):
-    """Phase 4: the bank at full width; returns (results, launch counts)."""
+    """Phase 4: the unicycle bank at full width; returns (cold result,
+    launch counts)."""
     f32 = torch.float32
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
@@ -151,29 +213,21 @@ def main_path(device):
     u_warm = cold.l[0]
     warm, t_warm = sync_time(lambda: bank(x_mpc, u_warm, thetas))
     wide, t_wide = sync_time(lambda: bank(x_mpc, u_warm, thetas_wide))
-    default_bank = make_batched_solver(prob, ILEQGConfig(), device=device)
+    default_bank = make_batched_solver(prob, ILEQGConfig(iter_max=3),
+                                       device=device)
     dflt, t_dflt = sync_time(lambda: default_bank(
-        x0, torch.zeros((T, 2), dtype=f32, device=device),
-        thetas[:: B_MAIN // B_DEFAULT]))
+        x_mpc, u_warm, thetas[:: B_MAIN // B_DEFAULT]))
     counts = dict(_build.launch_counts)
 
     for name, res, B, secs in (("cold", cold, B_MAIN, t_cold),
                                ("warm", warm, B_MAIN, t_warm),
                                ("warm", wide, B_WIDE, t_wide),
-                               ("default-config cold", dflt, B_DEFAULT,
+                               ("default-config warm", dflt, B_DEFAULT,
                                 t_dflt)):
-        assert res.value.shape == (B,) and res.l.shape == (B, T, 2)
-        n_failed = int(res.failed.sum())
-        assert n_failed == 0, f"{name} B={B}: {n_failed} failed lanes"
-        assert bool(torch.isfinite(res.value).all()), f"{name} B={B}"
-        it = res.iterations
-        print(f"main path {name} solve B={B}: 0 failed, values "
-              f"{float(res.value.min()):.6f}..{float(res.value.max()):.6f}, "
-              f"iterations {int(it.min())}..{int(it.max())}, "
-              f"{secs:.3f} s", flush=True)
+        check_result(f"unicycle bank {name} solve", res, B, T, 2, secs)
     for name in BANK_KERNELS:
         assert counts.get(name, 0) > 0, f"{name} kernel never launched"
-    print(f"bank path launch counts: {counts}", flush=True)
+    print(f"unicycle bank path launch counts: {counts}", flush=True)
     return cold, counts
 
 
@@ -181,7 +235,8 @@ def plain_cpu_parity(cold):
     """Phase 5: 64 lanes of the cold B=16,384 bank on the CPU, plain."""
     idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
     thetas = torch.linspace(0.0, 0.02, B_MAIN, dtype=torch.float32)[idx]
-    bank = make_batched_solver(unicycle(N=T, dtype=torch.float32),
+    bank = make_batched_solver(unicycle(N=T, dtype=torch.float32,
+                                        device="cpu"),
                                BENCH_CONFIG)
     res = bank(torch.zeros(3), torch.zeros((T, 2)), thetas)
     gpu = {k: getattr(cold, k)[idx.to(cold.value.device)].cpu()
@@ -196,13 +251,89 @@ def plain_cpu_parity(cold):
           f"iterations equal, value max rel diff {rel:.3e}", flush=True)
 
 
+def quad_thetas(B, dtype=torch.float32, device=None):
+    return torch.linspace(0.0, QUAD_THETA_MAX, B, dtype=dtype,
+                          device=device)
+
+
+def quadrotor_path(device):
+    """Phase 6: the model-size bank path on the quadrotor; returns the
+    launch counts per configuration."""
+    f32 = torch.float32
+    prob = quadrotor(N=QUAD_T, dtype=f32, device=device)
+    x0 = torch.zeros(12, dtype=f32, device=device)
+    u0 = torch.zeros((QUAD_T, 4), dtype=f32, device=device)
+    counts, u_warm = {}, {}
+
+    def run(key, label, B, u_init):
+        config, path = QUAD_CONFIGS[key]
+        bank = make_batched_solver(prob, config, device=device)
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        res, secs = sync_time(lambda: bank(x0, u_init, quad_thetas(B)))
+        launched = dict(_build.launch_counts)
+        check_result(f"quadrotor ({key}) {label} solve", res, B, QUAD_T, 4,
+                     secs)
+        for kernel in KERNELS:
+            ran = launched.get(kernel, 0)
+            assert (ran > 0) == (kernel in path), (
+                f"quadrotor ({key}) {label} B={B}: launches {launched}, "
+                f"expected exactly {path}")
+        print(f"quadrotor ({key}) {label} B={B} launch counts: {launched}",
+              flush=True)
+        for kernel, n in launched.items():
+            counts.setdefault(key, {})
+            counts[key][kernel] = counts[key].get(kernel, 0) + n
+        return res
+
+    for key in ("a", "b"):
+        cold = run(key, "cold", B_MAIN, u0)
+        u_warm[key] = cold.l[0]
+        del cold
+        run(key, "warm", B_MAIN, u_warm[key])
+    run("b", "warm", B_WIDE, u_warm["b"])
+    run("c", "warm", B_MAIN, u_warm["b"])
+    print(f"quadrotor path launch counts: {counts}", flush=True)
+    return counts
+
+
+def quadrotor_cpu_parity(device):
+    """Phase 6, last: 64 θ of configuration (b), cold, in float64 on the
+    card and on the CPU through the plain path."""
+    f64 = torch.float64
+    idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
+    thetas = quad_thetas(B_MAIN, f64)[idx]
+    config = QUAD_CONFIGS["b"][0]
+    out = []
+    for dev in (device, torch.device("cpu")):
+        bank = make_batched_solver(quadrotor(N=QUAD_T, dtype=f64, device=dev),
+                                   config, device=dev)
+        out.append(bank(torch.zeros(12, dtype=f64),
+                        torch.zeros((QUAD_T, 4), dtype=f64), thetas))
+    gpu = {k: getattr(out[0], k).cpu() for k in ("failed", "iterations",
+                                                  "value")}
+    cpu = out[1]
+    assert not bool(cpu.failed.any()), "float64 quadrotor lanes failed"
+    assert torch.equal(cpu.failed, gpu["failed"]), "failed lanes differ"
+    assert torch.equal(cpu.iterations, gpu["iterations"]), (
+        f"iterations differ: cpu {cpu.iterations.tolist()} "
+        f"gpu {gpu['iterations'].tolist()}")
+    torch.testing.assert_close(gpu["value"], cpu.value, rtol=1e-3, atol=0)
+    rel = float(((gpu["value"] - cpu.value) / cpu.value).abs().max())
+    it = cpu.iterations
+    print(f"64 quadrotor θ of (b) in float64 on the card vs the plain path "
+          f"on the CPU: failed and iterations ({int(it.min())}.."
+          f"{int(it.max())}) equal, value max rel diff {rel:.3e}",
+          flush=True)
+
+
 def rat_problem(device, dtype=torch.float32):
     return unicycle(N=T, noise=2e-3, dtype=dtype, device=device,
                     analytic_jacobians=True)
 
 
 def rat_mpc(device):
-    """Phase 6: five MPC re-plans through each RAT iLQR entry point;
+    """Phase 7: N_REPLANS MPC re-plans through each RAT iLQR entry point;
     returns the launch counts of the path."""
     f32 = torch.float32
     prob = rat_problem(device)
@@ -264,7 +395,7 @@ def rat_mpc(device):
 
 
 def ce_generation(device, name_power):
-    """Phase 7: one CE generation of B_CE lanes, timed and profiled, and 64
+    """Phase 8: one CE generation of B_CE lanes, timed and profiled, and 64
     of its θ again in float64, on the card and on the CPU (plain path).
 
     In float32 at this noise most inner solves stop at ``iter_max`` with
@@ -319,21 +450,27 @@ def ce_generation(device, name_power):
 
 
 def timings(device, name_power):
-    """Phase 8: returns {kernel: (ms, plain ms)} at B_WIDE."""
+    """Phase 9: returns {(model, B): {kernel: record}} with each kernel's
+    wrapper, launch-alone and plain times and its bound."""
     f32 = torch.float32
     result = {}
-    for B in (B_MAIN, B_WIDE):
-        times = kernel_check.kernel_timings(T, B, f32, device)
-        launch_ms, _ = times.pop("riccati_folded_launch")
-        for kernel, (ms, plain) in times.items():
-            print(f"time {kernel} T={T} B={B} f32: wrapper {ms:.3f} ms, "
-                  f"plain {plain:.3f} ms (median of 5, CUDA events; "
-                  f"{name_power})", flush=True)
-            if B == B_WIDE:
-                result[kernel] = (ms, plain)
-        print(f"time riccati_folded T={T} B={B} f32: launch alone on "
-              f"lane-minor inputs {launch_ms:.3f} ms (median of 5, CUDA "
-              f"events; {name_power})", flush=True)
+    for model, horizon in (("unicycle", T), ("quadrotor", QUAD_T)):
+        n, m = MODEL_DIMS[model]
+        for B in (B_MAIN, B_WIDE):
+            times = kernel_check.kernel_timings(model, horizon, B, f32,
+                                                device)
+            for kernel, (ms, launch_ms, plain_ms) in times.items():
+                bound, by = kernel_check.bound_ms(kernel, n, m, horizon, B,
+                                                  f32)
+                result.setdefault((model, B), {})[kernel] = dict(
+                    ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by)
+                plain = ("not measured (out of device memory)"
+                         if plain_ms is None else f"{plain_ms:.3f} ms")
+                print(f"time {kernel} {model} T={horizon} B={B} f32: wrapper "
+                      f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, plain "
+                      f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
+                      f"CUDA events; {name_power})", flush=True)
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -351,6 +488,32 @@ def timings(device, name_power):
     return result
 
 
+def kernel_record(err32, quad_counts, earlier_counts, times):
+    """The JSON kernel record: this slice's path (the quadrotor, T=50,
+    B=16,384, f32) at the top level, the unicycle path at B=262,144 under
+    ``"unicycle"``."""
+    rows = []
+    for name, (src, rep) in KERNELS.items():
+        quad = times[("quadrotor", B_MAIN)][name]
+        uni = times[("unicycle", B_WIDE)][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "shapes": SHAPES[name],
+            "launches": sum(c.get(name, 0) for c in quad_counts.values()),
+            "launches_by_path": {**{f"quadrotor_{k}": c.get(name, 0)
+                                    for k, c in quad_counts.items()},
+                                 **{k: c.get(name, 0)
+                                    for k, c in earlier_counts.items()}},
+            "max_abs_err": err32[name],
+            "ms": quad["ms"], "launch_ms": quad["launch_ms"],
+            "plain_ms": quad["plain_ms"], "bound_ms": quad["bound_ms"],
+            "bound_by": quad["bound_by"], "library_ms": None,
+            "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_MAIN} f32",
+            "unicycle": {**uni, "library_ms": None,
+                         "at": f"unicycle n=3 m=2 T={T} B={B_WIDE} f32"}})
+    return {"kernels": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -363,29 +526,32 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: "
           f"{name_power} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} "
-          f"({lib_path.parent.name})", flush=True)
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas" + line.split("ptxas", 1)[-1], flush=True)
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
 
-    err32 = check_kernels(device)
-    cold, counts = main_path(device)
-    plain_cpu_parity(cold)
-    rat_counts = rat_mpc(device)
-    counts["riccati_folded"] = rat_counts["riccati_folded"]
-    ce_generation(device, name_power)
-    times = timings(device, name_power)
+    phase("build", build)
+    err32 = phase("kernels vs plain", check_kernels, device)
+    cold, bank_counts = phase("unicycle bank", main_path, device)
+    phase("unicycle CPU parity", plain_cpu_parity, cold)
+    del cold
+    quad_counts = phase("quadrotor bank", quadrotor_path, device)
+    phase("quadrotor f64 CPU parity", quadrotor_cpu_parity, device)
+    rat_counts = phase("RAT iLQR MPC", rat_mpc, device)
+    phase("CE generation", ce_generation, device, name_power)
+    times = phase("timings", timings, device, name_power)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          f"device check ({name_power})", flush=True)
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": err32[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, rep) in KERNELS.items()]}), flush=True)
+    print(json.dumps(kernel_record(
+        err32, quad_counts,
+        {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts}, times)),
+        flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,9 +73,10 @@ def ratilqr_result_to_numpy(res) -> dict:
             for name, v in zip(RATiLQRResult._fields, res)}
 
 
-def result_from_numpy(arrays: Mapping, device="cpu",
+def result_from_numpy(arrays: Mapping, device="cuda",
                       dtype=torch.float64) -> ILEQGResult:
-    """Dictionary of numpy arrays → the port's ``ILEQGResult``: floating
+    """Dictionary of numpy arrays → the port's ``ILEQGResult`` on
+    ``device`` (the card unless the caller asks for ``"cpu"``): floating
     fields in ``dtype``, counters as int32, ``failed`` as bool."""
     fields = {}
     for name in ILEQGResult._fields:

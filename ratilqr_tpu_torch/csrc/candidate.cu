@@ -28,16 +28,25 @@
 // here a register-resident stack is impossible (22 words × T per lane)
 // and a stored stack in device memory would move more bytes than it
 // saves, so the recompute design is the one kernel.
+//
+// At n=12, m=4 (the quadrotor; the TPU ran its recompute variant there,
+// candidate_pallas.py:440-456) a step needs x̄, l and L, 64 words per
+// lane (this design reads them twice), against ~21,900 operations of fold
+// and folded DP: at B = 16,384 and T = 50 that
+// is 0.21 GB (0.06 ms) against 1.79e10 operations (0.27 ms), bound by the
+// FP32 rate, with the 12x12 working set spilled out of registers as in
+// step.cu.
 #include <cstdint>
 
 #include "dp_step.cuh"
+#include "dtype.cuh"
 #include "tile_model.cuh"
 
 namespace {
 
 struct CandidateArgs {
   int B, T;
-  double p[4];
+  rq::Params p;
   const void *x_ref, *l_cand, *L, *W, *W_inv, *logdet_W, *theta, *mu;
   void *x_scratch, *value;
   bool* m_fail;
@@ -47,14 +56,14 @@ template <typename T, int N, int M>
 __device__ __forceinline__ void policy(const T* xr, const T* lc, const T* Lg, int t, int64_t B,
                                        int b, const T (&x)[N], T (&u)[M], T (&L)[M][N]) {
   T dx[N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) dx[i] = x[i] - xr[(t * N + i) * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
   for (int i = 0; i < M; ++i) {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) L[i][j] = Lg[((int64_t(t) * M + i) * N + j) * B + b];
     T acc = L[i][0] * dx[0];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 1; j < N; ++j) acc = acc + L[i][j] * dx[j];
     u[i] = lc[(t * M + i) * B + b] + acc;
   }
@@ -78,7 +87,7 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
 
   // Forward: closed-loop rollout from x̄_0 (rollout_feedback: x_0 = x̄_0).
   T x[N], u[M], L[M][N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
     x[i] = xr[i * B + b];
     xs[i * B + b] = x[i];
@@ -87,7 +96,7 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
     policy<T, N, M>(xr, lc, Lg, t, B, b, x, u, L);
     T xn[N];
     model.f(x, u, xn);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       x[i] = xn[i];
       xs[((t + 1) * N + i) * B + b] = x[i];
@@ -101,7 +110,7 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
   const T mu = static_cast<const T*>(a.mu)[b];
   bool m_fail = false;
   for (int t = a.T - 1; t >= 0; --t) {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) x[i] = xs[(t * N + i) * B + b];
     policy<T, N, M>(xr, lc, Lg, t, B, b, x, u, L);
     T q, qv[N], Q[N][N], r[M], R[M][M], P[M][N], A[N][N], Bm[N][M];
@@ -115,10 +124,10 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
     rq::mtm<T, M, N, N>(L, RL, LtRL);
     rq::mtm<T, M, N, N>(L, L, LtL);
     rq::mm<T, N, M, N>(Bm, L, BL);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       qv[i] = qv[i] + Ltr[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) {
         Q[i][j] = Q[i][j] + LtP[i][j] + LtP[j][i] + LtRL[i][j] + mu * LtL[i][j];
         A[i][j] = A[i][j] + BL[i][j];
@@ -127,9 +136,9 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
     rq::sym_inplace<T, N>(Q);
 
     T W[N][N], Wi[N][N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) {
         W[i][j] = Ws[(t * N + i) * N + j];
         Wi[i][j] = Wis[(t * N + i) * N + j];
@@ -148,6 +157,8 @@ int dispatch(int model, const CandidateArgs& a, cudaStream_t stream) {
     candidate_kernel<T, rq::Unicycle><<<blocks, threads, 0, stream>>>(a);
   else if (model == rq::kLqr)
     candidate_kernel<T, rq::Lqr><<<blocks, threads, 0, stream>>>(a);
+  else if (model == rq::kQuadrotor)
+    candidate_kernel<T, rq::Quadrotor><<<blocks, threads, 0, stream>>>(a);
   else
     return -1;
   return cudaGetLastError();
@@ -155,20 +166,19 @@ int dispatch(int model, const CandidateArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64; model: a rq::ModelId with parameters
-// p0..p3.  Arrays are lane-minor; x_scratch holds (T+1)·n·B elements.
-// Returns cudaGetLastError() after the launch, or -1 for an unsupported
-// (dtype, model).
-extern "C" int ratilqr_candidate(int dtype, int model, int B, int T, double p0, double p1,
-                                 double p2, double p3, const void* x_ref, const void* l_cand,
-                                 const void* L, const void* W, const void* W_inv,
-                                 const void* logdet_W, const void* theta, const void* mu,
-                                 void* x_scratch, void* value, void* m_fail, void* stream) {
+// model: a rq::ModelId whose parameters are the host array
+// params[rq::kMaxParams].  Arrays are lane-minor, of type Real; x_scratch
+// holds (T+1)·n·B elements.  Returns cudaGetLastError() after the launch,
+// or -1 for an unsupported model.
+extern "C" int RQ_ENTRY(ratilqr_candidate)(int model, int B, int T, const double* params,
+                                           const void* x_ref, const void* l_cand,
+                                           const void* L, const void* W, const void* W_inv,
+                                           const void* logdet_W, const void* theta,
+                                           const void* mu, void* x_scratch, void* value,
+                                           void* m_fail, void* stream) {
   if (B <= 0) return 0;
-  const CandidateArgs a{B,     T,     {p0, p1, p2, p3}, x_ref,    l_cand, L, W, W_inv, logdet_W,
-                        theta, mu,    x_scratch,        value,    static_cast<bool*>(m_fail)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(model, a, st);
-  if (dtype == 1) return dispatch<double>(model, a, st);
-  return -1;
+  CandidateArgs a{B,     T,  {},        x_ref, l_cand, L, W, W_inv, logdet_W,
+                  theta, mu, x_scratch, value, static_cast<bool*>(m_fail)};
+  for (int i = 0; i < rq::kMaxParams; ++i) a.p[i] = params[i];
+  return dispatch<Real>(model, a, static_cast<cudaStream_t>(stream));
 }

@@ -17,9 +17,9 @@ template <typename T, int N>
 __device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)[N][N],
                                        const T (&sv)[N], const T (&Mc)[N][N], T ldW) {
   T tr = T(0);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) tr = tr + W[i][j] * S[j][i];
   T Minv_sv[N];
   cho_solve_vec<T, N>(Mc, sv, Minv_sv);
@@ -35,17 +35,17 @@ template <typename T, int N>
 __device__ __forceinline__ bool m_factor(T theta, const T (&Wi)[N][N], const T (&S)[N][N],
                                          T (&Mc)[N][N], T (&D)[N][N]) {
   T Mm[N][N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) Mm[i][j] = Wi[i][j] - theta * S[i][j];
   sym_inplace<T, N>(Mm);
   chol<T, N>(Mm, Mc);
   T MinvS[N][N];
   cho_solve_mat<T, N, N>(Mc, S, MinvS);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) D[i][j] = (i == j ? T(1) : T(0)) + theta * MinvS[j][i];
   return chol_ok<T, N>(Mc);
 }
@@ -71,18 +71,18 @@ __device__ __forceinline__ void dp_step(
   mm<T, N, N, N>(D, S, DS);
   mv<T, N, N>(D, sv, Dsv);
   mtv<T, N, M>(Bm, Dsv, tmpM);
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
   for (int i = 0; i < M; ++i) g[i] = r[i] + tmpM[i];  // ileqg.jl:368
   mtm<T, N, M, N>(Bm, DS, BtDS);
   mm<T, M, N, N>(BtDS, A, tmpMN);
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) G[i][j] = P[i][j] + tmpMN[i][j];  // ileqg.jl:369
   mm<T, M, N, M>(BtDS, Bm, tmpMM);
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int j = 0; j < M; ++j) H[i][j] = R[i][j] + tmpMM[i][j] + (i == j ? mu : T(0));
   sym_inplace<T, M>(H);  // ileqg.jl:370-371
 
@@ -92,10 +92,10 @@ __device__ __forceinline__ void dp_step(
     if (!chol_ok<T, M>(Hc) && !failed && !m_fail) h_fail = true;
     cho_solve_mat<T, M, N>(Hc, G, L);  // L = −H⁻¹G, ileqg.jl:379
     cho_solve_vec<T, M>(Hc, g, dl);    // dl = −H⁻¹g, ileqg.jl:381
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int i = 0; i < M; ++i) {
       dl[i] = -dl[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) L[i][j] = -L[i][j];
     }
   }
@@ -118,10 +118,10 @@ __device__ __forceinline__ void dp_step(
   mm<T, M, M, N>(H, L, HL);
   mtm<T, M, N, N>(L, HL, LtHL);
   mtm<T, M, N, N>(L, G, LtG);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
     sv[i] = qv[i] + AtDsv[i] + LtHdl[i] + Ltg[i] + Gtdl[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j)
       S[i][j] = Q[i][j] + AtDSA[i][j] + LtHL[i][j] + LtG[i][j] + LtG[j][i];
   }
@@ -145,10 +145,10 @@ __device__ __forceinline__ void folded_step(T q, const T (&qv)[N], const T (&Q)[
   mtv<T, N, N>(A, Dsv, AtDsv);
   mtm<T, N, N, N>(A, DS, AtDS);
   mm<T, N, N, N>(AtDS, A, AtDSA);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
     sv[i] = qv[i] + AtDsv[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) S[i][j] = Q[i][j] + AtDSA[i][j];
   }
   sym_inplace<T, N>(S);

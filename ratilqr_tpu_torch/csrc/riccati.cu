@@ -23,9 +23,19 @@
 // at the FP32 rate), so this kernel is bound by device memory.  The simple
 // design does nothing beyond coalescing; the fused kernels (step.cu,
 // candidate.cu) are the answer, since they stream 11-15 words instead.
+//
+// At n=12, m=4 (the quadrotor) a step streams 417 words in and 52 out
+// (1.9 KB per lane in f32) against ~22,600 operations: at B = 16,384 and
+// T = 50 that is 1.55 GB (0.46 ms) against 1.85e10 operations (0.28 ms),
+// still bound by bytes on paper.  But one solve per thread then holds S,
+// A, Q, W, W⁻¹, M and D at 144 words each, far above the 255-register
+// cap: ptxas spills to local memory and that traffic, not the streamed
+// blocks, sets the time.  A redesign (a warp or a block per solve, S in
+// shared memory) is later work; this form is kept right and simple.
 #include <cstdint>
 
 #include "dp_step.cuh"
+#include "dtype.cuh"
 
 namespace {
 
@@ -59,10 +69,10 @@ __global__ void __launch_bounds__(128) riccati_kernel(const RiccatiArgs a) {
   // Terminal carry.
   T s = static_cast<const T*>(a.q_term)[b];
   T sv[N], S[N][N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
     sv[i] = static_cast<const T*>(a.q_vec_term)[i * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) S[i][j] = static_cast<const T*>(a.Q_term)[(i * N + j) * B + b];
   }
   const T theta = static_cast<const T*>(a.theta)[b];
@@ -72,10 +82,10 @@ __global__ void __launch_bounds__(128) riccati_kernel(const RiccatiArgs a) {
   for (int t = a.T - 1; t >= 0; --t) {
     T qt = q[t * B + b], qv[N], Q[N][N], r[M], R[M][M], P[M][N], A[N][N], Bm[N][M];
     T W[N][N], Wi[N][N], ldW, L[M][N], dl[M], g[M], G[M][N], H[M][M];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       qv[i] = q_vec[(t * N + i) * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) {
         const int64_t e = (int64_t(t) * N + i) * N + j;
         Q[i][j] = Qs[e * B + b];
@@ -83,23 +93,23 @@ __global__ void __launch_bounds__(128) riccati_kernel(const RiccatiArgs a) {
         W[i][j] = a.w_shared ? Ws[e] : Ws[e * B + b];
         Wi[i][j] = a.w_shared ? Wis[e] : Wis[e * B + b];
       }
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
       for (int j = 0; j < M; ++j) Bm[i][j] = Bs[((int64_t(t) * N + i) * M + j) * B + b];
     }
     ldW = a.w_shared ? ldWs[t] : ldWs[t * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int i = 0; i < M; ++i) {
       r[i] = r_[(t * M + i) * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
       for (int j = 0; j < M; ++j) R[i][j] = Rs[((int64_t(t) * M + i) * M + j) * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) P[i][j] = Ps[((int64_t(t) * M + i) * N + j) * B + b];
     }
     if (!OPT) {
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
       for (int i = 0; i < M; ++i) {
         dl[i] = a.has_dl ? dl_in[(t * M + i) * B + b] : T(0);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
         for (int j = 0; j < N; ++j) L[i][j] = L_in[((int64_t(t) * M + i) * N + j) * B + b];
       }
     }
@@ -110,29 +120,29 @@ __global__ void __launch_bounds__(128) riccati_kernel(const RiccatiArgs a) {
     if (OPT || !a.slim) {
       T* Lo = static_cast<T*>(a.L);
       T* dlo = static_cast<T*>(a.dl);
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
       for (int i = 0; i < M; ++i) {
         dlo[(t * M + i) * B + b] = dl[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
         for (int j = 0; j < N; ++j) Lo[((int64_t(t) * M + i) * N + j) * B + b] = L[i][j];
       }
     }
     if (!a.slim) {
       static_cast<T*>(a.s)[t * B + b] = s;
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int i = 0; i < N; ++i) {
         static_cast<T*>(a.s_vec)[(t * N + i) * B + b] = sv[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
         for (int j = 0; j < N; ++j)
           static_cast<T*>(a.S)[((int64_t(t) * N + i) * N + j) * B + b] = S[i][j];
       }
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
       for (int i = 0; i < M; ++i) {
         static_cast<T*>(a.g)[(t * M + i) * B + b] = g[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
         for (int j = 0; j < N; ++j)
           static_cast<T*>(a.G)[((int64_t(t) * M + i) * N + j) * B + b] = G[i][j];
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
         for (int j = 0; j < M; ++j)
           static_cast<T*>(a.H)[((int64_t(t) * M + i) * M + j) * B + b] = H[i][j];
       }
@@ -158,23 +168,26 @@ template <typename T>
 int dispatch(int n, int m, const RiccatiArgs& a, int optimizing, cudaStream_t stream) {
   if (n == 3 && m == 2) return launch<T, 3, 2>(a, optimizing, stream);
   if (n == 2 && m == 2) return launch<T, 2, 2>(a, optimizing, stream);
+  if (n == 12 && m == 4) return launch<T, 12, 4>(a, optimizing, stream);
   return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64.  Returns cudaGetLastError() after the
-// launch, or -1 for an unsupported (dtype, n, m).  All arrays are
-// lane-minor; unused pointers may be null.
-extern "C" int ratilqr_riccati(int dtype, int n, int m, int B, int T, int optimizing, int slim,
-                               int w_shared, int has_dl, const void* q, const void* q_vec,
-                               const void* Q, const void* r, const void* R, const void* P,
-                               const void* A, const void* Bm, const void* W, const void* W_inv,
-                               const void* logdet_W, const void* q_term, const void* q_vec_term,
-                               const void* Q_term, const void* theta, const void* mu,
-                               const void* L_in, const void* dl_in, void* value, void* s,
-                               void* s_vec, void* S, void* g, void* G, void* H, void* L,
-                               void* dl, void* m_fail, void* h_fail, void* stream) {
+// Arrays are lane-minor, of type Real; unused pointers may be null.
+// Returns cudaGetLastError() after the launch, or -1 for an unsupported
+// (n, m).
+extern "C" int RQ_ENTRY(ratilqr_riccati)(int n, int m, int B, int T, int optimizing, int slim,
+                                         int w_shared, int has_dl, const void* q,
+                                         const void* q_vec, const void* Q, const void* r,
+                                         const void* R, const void* P, const void* A,
+                                         const void* Bm, const void* W, const void* W_inv,
+                                         const void* logdet_W, const void* q_term,
+                                         const void* q_vec_term, const void* Q_term,
+                                         const void* theta, const void* mu, const void* L_in,
+                                         const void* dl_in, void* value, void* s, void* s_vec,
+                                         void* S, void* g, void* G, void* H, void* L, void* dl,
+                                         void* m_fail, void* h_fail, void* stream) {
   if (B <= 0) return 0;
   const RiccatiArgs a{B,      T,        slim,     w_shared,   has_dl, q,
                       q_vec,  Q,        r,        R,          P,      A,
@@ -182,8 +195,5 @@ extern "C" int ratilqr_riccati(int dtype, int n, int m, int B, int T, int optimi
                       Q_term, theta,    mu,       L_in,       dl_in,  value,
                       s,      s_vec,    S,        g,          G,      H,
                       L,      dl,       static_cast<bool*>(m_fail), static_cast<bool*>(h_fail)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(n, m, a, optimizing, st);
-  if (dtype == 1) return dispatch<double>(n, m, a, optimizing, st);
-  return -1;
+  return dispatch<Real>(n, m, a, optimizing, static_cast<cudaStream_t>(stream));
 }

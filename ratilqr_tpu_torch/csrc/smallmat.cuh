@@ -19,19 +19,31 @@
 
 namespace rq {
 
+// Loops over a dimension D of the algebra unroll in full up to
+// kUnrollMax (the unicycle and LQR: every array stays in registers) and
+// stay rolled above it (the n=12 quadrotor, whose 12x12 working set does
+// not fit the 255 registers of a thread either way; rolled, its kernels
+// build in seconds).
+constexpr int kUnrollMax = 4;
+
+template <int D>
+struct Unroll {
+  static constexpr int value = D <= kUnrollMax ? D : 1;
+};
+
 // Lower Cholesky factor; NaN entries when M is not positive definite.
 template <typename T, int N>
 __device__ __forceinline__ void chol(const T (&M)[N][N], T (&L)[N][N]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = 0; j < N; ++j) {
       if (j > i) {
         L[i][j] = T(0);
         continue;
       }
       T acc = M[i][j];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int k = 0; k < j; ++k) acc = acc - L[i][k] * L[j][k];
       L[i][j] = (i == j) ? sqrt(acc) : acc / L[j][j];
     }
@@ -42,7 +54,7 @@ __device__ __forceinline__ void chol(const T (&M)[N][N], T (&L)[N][N]) {
 template <typename T, int N>
 __device__ __forceinline__ bool chol_ok(const T (&L)[N][N]) {
   bool ok = true;
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) ok = ok && isfinite(L[i][i]) && (L[i][i] > T(0));
   return ok;
 }
@@ -52,17 +64,17 @@ template <typename T, int N>
 __device__ __forceinline__ void cho_solve_vec(const T (&L)[N][N], const T (&b)[N],
                                               T (&x)[N]) {
   T y[N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
     T acc = b[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int k = 0; k < i; ++k) acc = acc - L[i][k] * y[k];
     y[i] = acc / L[i][i];
   }
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = N - 1; i >= 0; --i) {
     T acc = y[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int k = i + 1; k < N; ++k) acc = acc - L[k][i] * x[k];
     x[i] = acc / L[i][i];
   }
@@ -72,13 +84,13 @@ __device__ __forceinline__ void cho_solve_vec(const T (&L)[N][N], const T (&b)[N
 template <typename T, int N, int P>
 __device__ __forceinline__ void cho_solve_mat(const T (&L)[N][N], const T (&B)[N][P],
                                               T (&X)[N][P]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<P>::value)
   for (int j = 0; j < P; ++j) {
     T b[N], x[N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) b[i] = B[i][j];
     cho_solve_vec<T, N>(L, b, x);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) X[i][j] = x[i];
   }
 }
@@ -87,7 +99,7 @@ __device__ __forceinline__ void cho_solve_mat(const T (&L)[N][N], const T (&B)[N
 template <typename T, int N>
 __device__ __forceinline__ T cho_logdet(const T (&L)[N][N]) {
   T acc = T(0);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) acc = acc + log(L[i][i]);
   return T(2) * acc;
 }
@@ -95,12 +107,12 @@ __device__ __forceinline__ T cho_logdet(const T (&L)[N][N]) {
 // C = A B  (A: P×Q, B: Q×R).
 template <typename T, int P, int Q, int R>
 __device__ __forceinline__ void mm(const T (&A)[P][Q], const T (&B)[Q][R], T (&C)[P][R]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<R>::value)
     for (int j = 0; j < R; ++j) {
       T acc = A[i][0] * B[0][j];
-#pragma unroll
+#pragma unroll (rq::Unroll<Q>::value)
       for (int k = 1; k < Q; ++k) acc = acc + A[i][k] * B[k][j];
       C[i][j] = acc;
     }
@@ -109,12 +121,12 @@ __device__ __forceinline__ void mm(const T (&A)[P][Q], const T (&B)[Q][R], T (&C
 // C = Aᵀ B  (A: Q×P, B: Q×R).
 template <typename T, int Q, int P, int R>
 __device__ __forceinline__ void mtm(const T (&A)[Q][P], const T (&B)[Q][R], T (&C)[P][R]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<R>::value)
     for (int j = 0; j < R; ++j) {
       T acc = A[0][i] * B[0][j];
-#pragma unroll
+#pragma unroll (rq::Unroll<Q>::value)
       for (int k = 1; k < Q; ++k) acc = acc + A[k][i] * B[k][j];
       C[i][j] = acc;
     }
@@ -123,10 +135,10 @@ __device__ __forceinline__ void mtm(const T (&A)[Q][P], const T (&B)[Q][R], T (&
 // y = A v  (A: P×Q).
 template <typename T, int P, int Q>
 __device__ __forceinline__ void mv(const T (&A)[P][Q], const T (&v)[Q], T (&y)[P]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i) {
     T acc = A[i][0] * v[0];
-#pragma unroll
+#pragma unroll (rq::Unroll<Q>::value)
     for (int k = 1; k < Q; ++k) acc = acc + A[i][k] * v[k];
     y[i] = acc;
   }
@@ -135,10 +147,10 @@ __device__ __forceinline__ void mv(const T (&A)[P][Q], const T (&v)[Q], T (&y)[P
 // y = Aᵀ v  (A: Q×P).
 template <typename T, int Q, int P>
 __device__ __forceinline__ void mtv(const T (&A)[Q][P], const T (&v)[Q], T (&y)[P]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i) {
     T acc = A[0][i] * v[0];
-#pragma unroll
+#pragma unroll (rq::Unroll<Q>::value)
     for (int k = 1; k < Q; ++k) acc = acc + A[k][i] * v[k];
     y[i] = acc;
   }
@@ -147,7 +159,7 @@ __device__ __forceinline__ void mtv(const T (&A)[Q][P], const T (&v)[Q], T (&y)[
 template <typename T, int N>
 __device__ __forceinline__ T dot(const T (&a)[N], const T (&b)[N]) {
   T acc = a[0] * b[0];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int k = 1; k < N; ++k) acc = acc + a[k] * b[k];
   return acc;
 }
@@ -155,9 +167,9 @@ __device__ __forceinline__ T dot(const T (&a)[N], const T (&b)[N]) {
 // M ← ½(M + Mᵀ).
 template <typename T, int N>
 __device__ __forceinline__ void sym_inplace(T (&M)[N][N]) {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int j = i + 1; j < N; ++j) {
       const T v = T(0.5) * (M[i][j] + M[j][i]);
       M[i][j] = v;

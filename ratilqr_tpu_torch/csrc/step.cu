@@ -24,16 +24,24 @@
 // point and leans to the FP32 ALUs.  The simple design keeps every
 // intermediate in registers and leaves x to the L2 cache between the two
 // phases (x of a 128-lane block is 154 KB at T = 100 in f32).
+//
+// At n=12, m=4 (the quadrotor) a step moves 4 + 12 + 48 + 4 + 4 words per
+// lane but runs ~22,600 operations of DP algebra: at B = 16,384 and T = 50
+// that is 0.22 GB (0.07 ms) against 1.85e10 operations (0.28 ms), bound by
+// the FP32 rate.  The 12x12 working set does not fit the 255 registers of
+// a thread, so ptxas spills; a layout that spreads one solve over a warp
+// is later work.
 #include <cstdint>
 
 #include "dp_step.cuh"
+#include "dtype.cuh"
 #include "tile_model.cuh"
 
 namespace {
 
 struct StepArgs {
   int B, T;
-  double p[4];
+  rq::Params p;
   const void *l, *x0, *W, *W_inv, *logdet_W, *theta, *mu;
   void *x, *value, *L, *dl;
   bool *m_fail, *h_fail;
@@ -57,17 +65,17 @@ __global__ void __launch_bounds__(128) step_kernel(const StepArgs a) {
 
   // Forward: open-loop rollout u_t = l_t from x0.
   T x[N], u[M];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i) {
     x[i] = static_cast<const T*>(a.x0)[i * B + b];
     xs[i * B + b] = x[i];
   }
   for (int t = 0; t < a.T; ++t) {
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int j = 0; j < M; ++j) u[j] = l[(t * M + j) * B + b];
     T xn[N];
     model.f(x, u, xn);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       x[i] = xn[i];
       xs[((t + 1) * N + i) * B + b] = x[i];
@@ -81,17 +89,17 @@ __global__ void __launch_bounds__(128) step_kernel(const StepArgs a) {
   const T mu = static_cast<const T*>(a.mu)[b];
   bool m_fail = false, h_fail = false;
   for (int t = a.T - 1; t >= 0; --t) {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) x[i] = xs[(t * N + i) * B + b];
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int j = 0; j < M; ++j) u[j] = l[(t * M + j) * B + b];
     T q, qv[N], Q[N][N], r[M], R[M][M], P[M][N], A[N][N], Bm[N][M];
     model.jac(x, u, A, Bm);
     model.quad(t, x, u, q, qv, Q, r, R, P);
     T W[N][N], Wi[N][N];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) {
         W[i][j] = Ws[(t * N + i) * N + j];
         Wi[i][j] = Wis[(t * N + i) * N + j];
@@ -99,10 +107,10 @@ __global__ void __launch_bounds__(128) step_kernel(const StepArgs a) {
     T L[M][N], dl[M], g[M], G[M][N], H[M][M];
     rq::dp_step<T, N, M, true>(q, qv, Q, r, R, P, A, Bm, W, Wi, ldWs[t], theta, mu, L, dl, g,
                                G, H, s, sv, S, m_fail, h_fail);
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int i = 0; i < M; ++i) {
       dlo[(t * M + i) * B + b] = dl[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) Lo[((int64_t(t) * M + i) * N + j) * B + b] = L[i][j];
     }
   }
@@ -119,6 +127,8 @@ int dispatch(int model, const StepArgs& a, cudaStream_t stream) {
     step_kernel<T, rq::Unicycle><<<blocks, threads, 0, stream>>>(a);
   else if (model == rq::kLqr)
     step_kernel<T, rq::Lqr><<<blocks, threads, 0, stream>>>(a);
+  else if (model == rq::kQuadrotor)
+    step_kernel<T, rq::Quadrotor><<<blocks, threads, 0, stream>>>(a);
   else
     return -1;
   return cudaGetLastError();
@@ -126,19 +136,18 @@ int dispatch(int model, const StepArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64; model: a rq::ModelId with parameters
-// p0..p3.  Arrays are lane-minor.  Returns cudaGetLastError() after the
-// launch, or -1 for an unsupported (dtype, model).
-extern "C" int ratilqr_step(int dtype, int model, int B, int T, double p0, double p1, double p2,
-                            double p3, const void* l, const void* x0, const void* W,
-                            const void* W_inv, const void* logdet_W, const void* theta,
-                            const void* mu, void* x, void* value, void* L, void* dl,
-                            void* m_fail, void* h_fail, void* stream) {
+// model: a rq::ModelId whose parameters are the host array
+// params[rq::kMaxParams].  Arrays are lane-minor, of type Real.  Returns
+// cudaGetLastError() after the launch, or -1 for an unsupported model.
+extern "C" int RQ_ENTRY(ratilqr_step)(int model, int B, int T, const double* params,
+                                      const void* l, const void* x0, const void* W,
+                                      const void* W_inv, const void* logdet_W,
+                                      const void* theta, const void* mu, void* x, void* value,
+                                      void* L, void* dl, void* m_fail, void* h_fail,
+                                      void* stream) {
   if (B <= 0) return 0;
-  const StepArgs a{B,  T,     {p0, p1, p2, p3}, l, x0, W, W_inv, logdet_W, theta, mu, x, value,
-                   L,  dl,    static_cast<bool*>(m_fail), static_cast<bool*>(h_fail)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(model, a, st);
-  if (dtype == 1) return dispatch<double>(model, a, st);
-  return -1;
+  StepArgs a{B, T, {}, l, x0, W, W_inv, logdet_W, theta, mu, x, value, L, dl,
+             static_cast<bool*>(m_fail), static_cast<bool*>(h_fail)};
+  for (int i = 0; i < rq::kMaxParams; ++i) a.p[i] = params[i];
+  return dispatch<Real>(model, a, static_cast<cudaStream_t>(stream));
 }

@@ -2,17 +2,24 @@
 // derivatives for the fused step and candidate kernels.
 //
 // Device counterparts of ratilqr_tpu/ops/tile_model.py
-// (unicycle_tile_model :68, lqr_tile_model :285) and of the plain-torch
-// mirrors in ratilqr_tpu_torch/ops/tile_model.py, formula for formula.
-// A model holds its scalar parameters; the kernel is templated on it.
+// (unicycle_tile_model :68, quadrotor_tile_model :199, lqr_tile_model
+// :285) and of the plain-torch mirrors in
+// ratilqr_tpu_torch/ops/tile_model.py, formula for formula.  A model holds
+// its scalar parameters; the kernel is templated on it.
 #pragma once
 
 #include <math.h>
 
+#include "smallmat.cuh"
+
 namespace rq {
 
 // Model ids, shared with ratilqr_tpu_torch/ops/tile_model.py.
-enum ModelId { kUnicycle = 0, kLqr = 1 };
+enum ModelId { kUnicycle = 0, kLqr = 1, kQuadrotor = 2 };
+
+// Parameter slots a kernel takes (tile_model.MAX_PARAMS); unused slots are 0.
+constexpr int kMaxParams = 8;
+using Params = double[kMaxParams];
 
 // Unicycle (n=3, m=2): parameters (dt, goal_x, goal_y).
 template <typename T>
@@ -21,7 +28,7 @@ struct Unicycle {
   static constexpr int M = 2;
   T dt, gx, gy;
 
-  __device__ explicit Unicycle(const double (&p)[4]) : dt(T(p[0])), gx(T(p[1])), gy(T(p[2])) {}
+  __device__ explicit Unicycle(const Params& p) : dt(T(p[0])), gx(T(p[1])), gy(T(p[2])) {}
 
   __device__ void f(const T (&x)[N], const T (&u)[M], T (&xn)[N]) const {
     const T s = sin(x[2]), c = cos(x[2]);
@@ -45,18 +52,18 @@ struct Unicycle {
     const T dx[N] = {x[0] - gx, x[1] - gy, x[2]};
     q = T(0.05) * (dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]) +
         T(0.05) * (u[0] * u[0] + u[1] * u[1]);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       qv[i] = T(0.1) * dx[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? T(0.1) : T(0);
     }
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
     for (int i = 0; i < M; ++i) {
       r[i] = T(0.1) * u[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<M>::value)
       for (int j = 0; j < M; ++j) R[i][j] = (i == j) ? T(0.1) : T(0);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) P[i][j] = T(0);
     }
   }
@@ -64,10 +71,10 @@ struct Unicycle {
   __device__ void term(const T (&x)[N], T& q, T (&qv)[N], T (&Q)[N][N]) const {
     const T dx[N] = {x[0] - gx, x[1] - gy, x[2]};
     q = T(10) * (dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       qv[i] = T(20) * dx[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? T(20) : T(0);
     }
   }
@@ -81,7 +88,7 @@ struct Lqr {
   static constexpr int M = 2;
   T hwx, wx, wu, twu, hwh, wh;
 
-  __device__ explicit Lqr(const double (&p)[4])
+  __device__ explicit Lqr(const Params& p)
       : hwx(T(0.5 * p[0])), wx(T(p[0])), wu(T(p[1])), twu(T(2.0 * p[1])),
         hwh(T(0.5 * p[2])), wh(T(p[2])) {}
 
@@ -91,9 +98,9 @@ struct Lqr {
   }
 
   __device__ void jac(const T (&)[N], const T (&)[M], T (&A)[N][N], T (&B)[N][M]) const {
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) {
         A[i][j] = (i == j) ? T(1) : T(0);
         B[i][j] = (i == j) ? T(1) : T(0);
@@ -103,11 +110,11 @@ struct Lqr {
   __device__ void quad(int, const T (&x)[N], const T (&u)[M], T& q, T (&qv)[N], T (&Q)[N][N],
                        T (&r)[M], T (&R)[M][M], T (&P)[M][N]) const {
     q = hwx * (x[0] * x[0] + x[1] * x[1]) + wu * (u[0] * u[0] + u[1] * u[1]);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       qv[i] = wx * x[i];
       r[i] = twu * u[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) {
         Q[i][j] = (i == j) ? wx : T(0);
         R[i][j] = (i == j) ? twu : T(0);
@@ -118,11 +125,114 @@ struct Lqr {
 
   __device__ void term(const T (&x)[N], T& q, T (&qv)[N], T (&Q)[N][N]) const {
     q = hwh * (x[0] * x[0] + x[1] * x[1]);
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) {
       qv[i] = wh * x[i];
-#pragma unroll
+#pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? wh : T(0);
+    }
+  }
+};
+
+// Small-angle quadrotor (n=12, m=4): state (position, velocity, roll/pitch/
+// yaw, body rates), control (thrust offset, three torques); parameters
+// (dt, grav, goal_x, goal_y, goal_z).  Only the acceleration rows are
+// nonlinear; the dense blocks are written in full, as the Pallas tile model
+// does (exploiting the sparsity is later work).
+template <typename T>
+struct Quadrotor {
+  static constexpr int N = 12;
+  static constexpr int M = 4;
+  T dt, dt20, grav, goal[3];
+
+  __device__ explicit Quadrotor(const Params& p)
+      : dt(T(p[0])), dt20(T(p[0] * 20.0)), grav(T(p[1])), goal{T(p[2]), T(p[3]), T(p[4])} {}
+
+  __device__ void f(const T (&x)[N], const T (&u)[M], T (&xn)[N]) const {
+    const T sph = sin(x[6]), cph = cos(x[6]), sth = sin(x[7]), cth = cos(x[7]);
+    const T thrust = grav + u[0];
+    const T acc[3] = {thrust * sth, -thrust * sph * cth, thrust * cph * cth - grav};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      xn[i] = x[i] + dt * x[3 + i];
+      xn[3 + i] = x[3 + i] + dt * acc[i];
+      xn[6 + i] = x[6 + i] + dt * x[9 + i];
+      xn[9 + i] = x[9 + i] + dt20 * u[1 + i];
+    }
+  }
+
+  __device__ void jac(const T (&x)[N], const T (&u)[M], T (&A)[N][N], T (&B)[N][M]) const {
+    const T sph = sin(x[6]), cph = cos(x[6]), sth = sin(x[7]), cth = cos(x[7]);
+    const T thrust = grav + u[0];
+#pragma unroll (rq::Unroll<N>::value)
+    for (int i = 0; i < N; ++i) {
+#pragma unroll (rq::Unroll<N>::value)
+      for (int j = 0; j < N; ++j) A[i][j] = (i == j) ? T(1) : T(0);
+#pragma unroll (rq::Unroll<M>::value)
+      for (int j = 0; j < M; ++j) B[i][j] = T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {  // pos <- vel, att <- rate, rate <- 20·torque
+      A[i][3 + i] = dt;
+      A[6 + i][9 + i] = dt;
+      B[9 + i][1 + i] = dt20;
+    }
+    // d acc / d(phi, theta), acc = thrust·(sinθ, −sinφ cosθ, cosφ cosθ) − (0, 0, g)
+    A[3][7] = dt * thrust * cth;
+    A[4][6] = -dt * thrust * cph * cth;
+    A[4][7] = dt * thrust * sph * sth;
+    A[5][6] = -dt * thrust * sph * cth;
+    A[5][7] = -dt * thrust * cph * sth;
+    B[3][0] = dt * sth;  // d acc / d u0: the thrust direction
+    B[4][0] = -dt * sph * cth;
+    B[5][0] = dt * cph * cth;
+  }
+
+  __device__ void delta(const T (&x)[N], T (&dx)[N]) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dx[i] = x[i] - goal[i];
+#pragma unroll (rq::Unroll<N>::value)
+    for (int i = 3; i < N; ++i) dx[i] = x[i];
+  }
+
+  __device__ void quad(int, const T (&x)[N], const T (&u)[M], T& q, T (&qv)[N], T (&Q)[N][N],
+                       T (&r)[M], T (&R)[M][M], T (&P)[M][N]) const {
+    T dx[N];
+    delta(x, dx);
+    T sx = dx[0] * dx[0], su = u[0] * u[0];
+#pragma unroll (rq::Unroll<N>::value)
+    for (int i = 1; i < N; ++i) sx = sx + dx[i] * dx[i];
+#pragma unroll (rq::Unroll<M>::value)
+    for (int i = 1; i < M; ++i) su = su + u[i] * u[i];
+    q = T(0.05) * sx + T(0.1) * su;
+#pragma unroll (rq::Unroll<N>::value)
+    for (int i = 0; i < N; ++i) {
+      qv[i] = T(0.1) * dx[i];
+#pragma unroll (rq::Unroll<N>::value)
+      for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? T(0.1) : T(0);
+    }
+#pragma unroll (rq::Unroll<M>::value)
+    for (int i = 0; i < M; ++i) {
+      r[i] = T(0.2) * u[i];
+#pragma unroll (rq::Unroll<M>::value)
+      for (int j = 0; j < M; ++j) R[i][j] = (i == j) ? T(0.2) : T(0);
+#pragma unroll (rq::Unroll<N>::value)
+      for (int j = 0; j < N; ++j) P[i][j] = T(0);
+    }
+  }
+
+  __device__ void term(const T (&x)[N], T& q, T (&qv)[N], T (&Q)[N][N]) const {
+    T dx[N];
+    delta(x, dx);
+    T sx = dx[0] * dx[0];
+#pragma unroll (rq::Unroll<N>::value)
+    for (int i = 1; i < N; ++i) sx = sx + dx[i] * dx[i];
+    q = T(20) * sx;
+#pragma unroll (rq::Unroll<N>::value)
+    for (int i = 0; i < N; ++i) {
+      qv[i] = T(40) * dx[i];
+#pragma unroll (rq::Unroll<N>::value)
+      for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? T(40) : T(0);
     }
   }
 };

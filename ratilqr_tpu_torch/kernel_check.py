@@ -20,26 +20,32 @@ error of the plain version against float64).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ratilqr_tpu_torch.models import lqr_problem, unicycle
+from ratilqr_tpu_torch.models import lqr_problem, quadrotor, unicycle
 from ratilqr_tpu_torch.ops import smallmat
 from ratilqr_tpu_torch.ops.approx import (Approximation, FoldedApprox,
                                           NoiseModel, approximate_folded,
                                           approximate_model, noise_model)
 from ratilqr_tpu_torch.ops.candidate_cuda import (candidate_bank,
-                                                  candidate_bank_plain)
-from ratilqr_tpu_torch.ops.riccati_cuda import (folded_layout,
-                                                launch_folded, riccati_bank,
+                                                  candidate_bank_plain,
+                                                  candidate_layout,
+                                                  launch_candidate)
+from ratilqr_tpu_torch.ops.riccati_cuda import (BankSlim, folded_layout,
+                                                launch_folded, launch_riccati,
+                                                riccati_bank,
                                                 riccati_bank_folded,
                                                 riccati_bank_folded_plain,
-                                                riccati_bank_plain)
+                                                riccati_bank_plain,
+                                                riccati_layout)
 from ratilqr_tpu_torch.ops.rollout import (rollout_open_loop,
                                            rollout_open_loop_with_jac)
-from ratilqr_tpu_torch.ops.step_cuda import (step_optimize_bank,
+from ratilqr_tpu_torch.ops.step_cuda import (launch_step, step_layout,
+                                             step_optimize_bank,
                                              step_optimize_bank_plain)
 from ratilqr_tpu_torch.ops.tile_model import lqr_tile_model
 from ratilqr_tpu_torch.problems import RiskSensitiveProblem
@@ -66,11 +72,13 @@ F32_DRIFT_FACTOR = 16.0
 
 
 def make_problem(model: str, T: int, dtype, device) -> RiskSensitiveProblem:
-    """``unicycle``, ``lqr``, or ``negative_curvature`` — the restart- and
-    h_fail-forcing fixture of tests/test_step_fused.py (control cost
-    −0.05·u·u, terminal cost 0.005·x·x), all with device models."""
+    """``unicycle``, ``lqr``, ``quadrotor``, or ``negative_curvature`` — the
+    restart- and h_fail-forcing fixture of tests/test_step_fused.py (control
+    cost −0.05·u·u, terminal cost 0.005·x·x), all with device models."""
     if model == "unicycle":
         return unicycle(N=T, dtype=dtype, device=device)
+    if model == "quadrotor":
+        return quadrotor(N=T, dtype=dtype, device=device)
     if model == "lqr":
         return lqr_problem(N=T, noise=0.5, dtype=dtype, device=device)
     if model == "negative_curvature":
@@ -208,10 +216,11 @@ def per_lane_noise(noise: NoiseModel, B: int):
     return W, smallmat.cho_inverse(chol), smallmat.cho_logdet(chol)
 
 
-def check_riccati(model: str, T: int, B: int, dtype, device,
-                  optimizing: bool, slim: bool, shared_w: bool,
-                  has_dl: bool) -> Tuple[float, float]:
-    """Kernel A against :func:`riccati_bank_plain` in one variant."""
+@functools.lru_cache(maxsize=2)
+def _riccati_fixture(model: str, T: int, B: int, dtype, device,
+                     shared_w: bool):
+    """Seeded approximation stack (shared or per-lane noise model) and the
+    inputs of kernel A's checks."""
     prob, x0, l, L, theta, mu, noise = bank_inputs(model, T, B, dtype,
                                                    device)
     x, A, Bm = rollout_open_loop_with_jac(prob, x0, l)
@@ -219,17 +228,54 @@ def check_riccati(model: str, T: int, B: int, dtype, device,
     if not shared_w:
         W, W_inv, logdet_W = per_lane_noise(noise, B)
         ap = ap._replace(W=W, W_inv=W_inv, logdet_W=logdet_W)
+    return ap, l, L, theta, mu
+
+
+@functools.lru_cache(maxsize=6)
+def _riccati_plain(model: str, T: int, B: int, dtype, device,
+                   shared_w: bool, optimizing: bool, has_dl: bool):
+    """``(L_in, dl_in, plain full output, its float64 run or None)`` of one
+    kernel A case; the slim and full variants share it."""
+    ap, l, L, theta, mu = _riccati_fixture(model, T, B, dtype, device,
+                                           shared_w)
     L_in = dl_in = None
     if not optimizing:
-        L_in = riccati_bank_plain(ap, theta, mu).L.nan_to_num() + 0.05 * L
+        opt = _riccati_plain(model, T, B, dtype, device, shared_w, True,
+                             False)[2]
+        L_in = opt.L.nan_to_num() + 0.05 * L
         dl_in = 0.05 * l if has_dl else None
-    got = riccati_bank(ap, theta, mu, L_in, dl_in, slim=slim)
-    want = riccati_bank_plain(ap, theta, mu, L_in, dl_in, slim=slim)
+    want = riccati_bank_plain(ap, theta, mu, L_in, dl_in)
     ref = None
     if dtype == torch.float32:
         ref = riccati_bank_plain(Approximation(*map(_f64, ap)), _f64(theta),
-                                 _f64(mu), _f64(L_in), _f64(dl_in),
-                                 slim=slim)
+                                 _f64(mu), _f64(L_in), _f64(dl_in))
+    return L_in, dl_in, want, ref
+
+
+def clear_caches() -> None:
+    """Free the fixtures and plain outputs kernel A's checks keep."""
+    _riccati_plain.cache_clear()
+    _riccati_fixture.cache_clear()
+
+
+def _slim(full, optimizing: bool):
+    """The slim output :func:`riccati_bank_plain` gives for ``full``."""
+    L, dl = (full.L, full.dl) if optimizing else (None, None)
+    return BankSlim(full.value, L, dl, full.m_fail, full.h_fail)
+
+
+def check_riccati(model: str, T: int, B: int, dtype, device,
+                  optimizing: bool, slim: bool, shared_w: bool,
+                  has_dl: bool) -> Tuple[float, float]:
+    """Kernel A against :func:`riccati_bank_plain` in one variant."""
+    ap, _, _, theta, mu = _riccati_fixture(model, T, B, dtype, device,
+                                           shared_w)
+    L_in, dl_in, want, ref = _riccati_plain(model, T, B, dtype, device,
+                                            shared_w, optimizing, has_dl)
+    if slim:
+        want = _slim(want, optimizing)
+        ref = None if ref is None else _slim(ref, optimizing)
+    got = riccati_bank(ap, theta, mu, L_in, dl_in, slim=slim)
     names = (("L", "dl") if (optimizing and slim) else () if slim else
              ("s_vec", "S", "g", "G", "H", "L", "dl"))
     return _compare(got, want, ref, theta, [("value", "value")]
@@ -343,30 +389,184 @@ def time_ms(fn: Callable[[], object], reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def kernel_timings(T: int, B: int, dtype, device) -> Dict[str, Tuple]:
-    """``{kernel: (wrapper ms, plain ms)}`` on the unicycle at (T, B); the
-    wrapper time includes its layout copies.  For kernel D the launch
-    alone, on inputs already in its layout, is ``"riccati_folded_launch"``
-    ``(ms, None)``."""
-    prob, x0, l, L, theta, mu, noise = bank_inputs("unicycle", T, B, dtype,
-                                                   device)
-    x, A, Bm = rollout_open_loop_with_jac(prob, x0, l)
-    ap = approximate_model(prob, l, x, A, Bm, noise)
-    cand = candidate_inputs("unicycle", T, B, dtype, device)
-    fa, fa_theta = folded_inputs("unicycle", T, B, dtype, device)
-    fa_layout = folded_layout(fa, fa_theta)
-    pairs = {
-        "riccati": (lambda: riccati_bank(ap, theta, mu, slim=True),
-                    lambda: riccati_bank_plain(ap, theta, mu, slim=True)),
-        "step": (lambda: step_optimize_bank(prob, x0, l, theta, mu, noise),
-                 lambda: step_optimize_bank_plain(prob, x0, l, theta, mu,
-                                                  noise)),
-        "candidate": (lambda: candidate_bank(*cand),
-                      lambda: candidate_bank_plain(*cand)),
-        "riccati_folded": (lambda: riccati_bank_folded(fa, fa_theta),
-                           lambda: riccati_bank_folded_plain(fa, fa_theta)),
-    }
-    out = {k: (time_ms(a), time_ms(b)) for k, (a, b) in pairs.items()}
-    out["riccati_folded_launch"] = (
-        time_ms(lambda: launch_folded(*fa_layout)), None)
+TILE_BASE = 16_384   # lanes a timing seeds; wider banks repeat them
+
+
+def _wide(x: torch.Tensor, B: int) -> torch.Tensor:
+    """Repeat the lane axis of ``x`` up to ``B`` lanes (the kernels' work
+    does not depend on the data)."""
+    reps = -(-B // x.shape[0])
+    return x.repeat((reps,) + (1,) * (x.dim() - 1))[:B]
+
+
+def _widen(stack, B: int):
+    """:func:`_wide` on every field of a stack but its shared noise
+    model."""
+    return type(stack)(*(x if k in ("W", "W_inv", "logdet_W") else
+                         _wide(x, B) for k, x in zip(stack._fields, stack)))
+
+
+def timing_cases(model: str, T: int, B: int, dtype, device):
+    """``{kernel: (wrapper, layout, launch, plain)}`` callables at (T, B) on
+    ``model``'s fixture: ``wrapper()`` and ``plain()`` run the kernel's
+    wrapper and its plain version, ``launch(layout())`` the kernel alone
+    on inputs already in its layout.  Inputs are seeded at up to
+    ``TILE_BASE`` lanes and repeated beyond that; each case builds its own
+    when it is reached, so one case's inputs are freed before the next."""
+    base = min(B, TILE_BASE)
+
+    def riccati():
+        prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, base,
+                                                       dtype, device)
+        x, A, Bm = rollout_open_loop_with_jac(prob, x0, l)
+        ap = _widen(approximate_model(prob, l, x, A, Bm, noise), B)
+        th, mu = _wide(theta, B), _wide(mu, B)
+        return (lambda: riccati_bank(ap, th, mu, slim=True),
+                lambda: riccati_layout(ap, th, mu),
+                lambda a: launch_riccati(*a, slim=True),
+                lambda: riccati_bank_plain(ap, th, mu, slim=True))
+
+    def step():
+        prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, base,
+                                                       dtype, device, seed=1)
+        args = (prob, *(_wide(x, B) for x in (x0, l, theta, mu)), noise)
+        return (lambda: step_optimize_bank(*args), lambda: step_layout(*args),
+                lambda a: launch_step(*a),
+                lambda: step_optimize_bank_plain(*args))
+
+    def candidate():
+        prob, *lanes, noise = candidate_inputs(model, T, base, dtype, device)
+        args = (prob, *(_wide(x, B) for x in lanes), noise)
+        return (lambda: candidate_bank(*args),
+                lambda: candidate_layout(*args),
+                lambda a: launch_candidate(*a),
+                lambda: candidate_bank_plain(*args))
+
+    def riccati_folded():
+        fa, theta = folded_inputs(model, T, base, dtype, device)
+        fa, th = _widen(fa, B), _wide(theta, B)
+        return (lambda: riccati_bank_folded(fa, th),
+                lambda: folded_layout(fa, th),
+                lambda a: launch_folded(*a),
+                lambda: riccati_bank_folded_plain(fa, th))
+
+    return {"riccati": riccati, "step": step, "candidate": candidate,
+            "riccati_folded": riccati_folded}
+
+
+def kernel_timings(model: str, T: int, B: int, dtype, device
+                   ) -> Dict[str, Tuple[float, float, Optional[float]]]:
+    """``{kernel: (wrapper ms, launch ms, plain ms)}`` on ``model`` at
+    (T, B), median of 5 by CUDA events: the wrapper with its layout copies,
+    the launch alone on inputs already in the kernel's layout, and the
+    plain version (None where it runs out of device memory).  Kernel A is
+    timed as the slim optimizing pass."""
+    out = {}
+    for kernel, make in timing_cases(model, T, B, dtype, device).items():
+        wrapper, layout, launch, plain = make()
+        args = layout()
+        launch_ms = time_ms(lambda: launch(args))
+        del args
+        wrapper_ms = time_ms(wrapper)
+        try:
+            plain_ms = time_ms(plain)
+        except torch.cuda.OutOfMemoryError:
+            plain_ms = None
+        out[kernel] = (wrapper_ms, launch_ms, plain_ms)
+        del wrapper, layout, launch, plain
+        torch.cuda.empty_cache()
     return out
+
+
+# Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, and the
+# FP32 / FP64 rates outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def _mm(p: int, q: int, r: int) -> int:
+    """Operations of a (p×q)(q×r) product."""
+    return p * r * (2 * q - 1)
+
+
+def _chol(n: int) -> int:
+    return n * (n + 1) * (2 * n + 1) // 6
+
+
+def _m_factor_ops(n: int) -> int:
+    # W⁻¹ − θS, sym, factor, M⁻¹S (n solves), D
+    return 2 * n * n + n * (n - 1) + _chol(n) + 2 * n ** 3 + 2 * n * n
+
+
+def _risk_ops(n: int) -> int:
+    # tr(WS), M⁻¹s⃗, s⃗ᵀM⁻¹s⃗, log det M and the scalar tail
+    return 2 * n * n + 2 * n * n + (2 * n - 1) + (2 * n + 1) + 6
+
+
+def dp_step_ops(n: int, m: int) -> int:
+    """Arithmetic operations of one optimizing ``dp_step`` (dp_step.cuh),
+    a multiply-add counted as 2."""
+    ops = _m_factor_ops(n)
+    ops += _mm(n, n, n) + _mm(n, n, 1) + _mm(m, n, 1) + m        # DS, Ds⃗, g
+    ops += 2 * _mm(m, n, n) + m * n                              # BᵀDS, G
+    ops += _mm(m, n, m) + 2 * m * m + m * (m - 1)                # H
+    ops += _chol(m) + 2 * m * m * (n + 1) + m * n + m            # L, dl
+    ops += _mm(m, m, 1) + 2 * (2 * m - 1) + 5 + _risk_ops(n)     # s
+    ops += _mm(n, n, 1) + 3 * _mm(n, m, 1) + 4 * n               # s⃗
+    ops += (2 * _mm(n, n, n) + _mm(m, m, n) + 2 * _mm(n, m, n)   # S
+            + 4 * n * n + n * (n - 1))
+    return ops
+
+
+def folded_step_ops(n: int) -> int:
+    """Arithmetic operations of one ``folded_step`` (dp_step.cuh)."""
+    return (_m_factor_ops(n) + _mm(n, n, n) + 2 * _mm(n, n, 1)
+            + _risk_ops(n) + 2 + n + 2 * _mm(n, n, n) + n * n + n * (n - 1))
+
+
+def fold_ops(n: int, m: int) -> int:
+    """Operations of kernel C's fold and its two policy evaluations per
+    step (candidate.cu)."""
+    return (_mm(n, m, 1) + 4 * _mm(n, m, n) + _mm(m, m, n) + n + 6 * n * n
+            + n * (n - 1) + 2 * (n + 2 * m * n))
+
+
+def kernel_work(kernel: str, n: int, m: int, T: int, B: int, dtype
+                ) -> Tuple[float, float]:
+    """(bytes, operations) a kernel's function needs at (n, m, T, B): each
+    input read once and each output written once (a shared noise model
+    once for the bank), and the DP algebra's arithmetic (the model's own
+    dynamics and cost are not counted, so the bound stays a lower one).
+    Kernel A is the slim optimizing pass."""
+    w = torch.empty((), dtype=dtype).element_size()
+    noise = T * (2 * n * n + 1)
+    if kernel == "riccati":
+        lane = (T * (1 + n + 2 * n * n + m + m * m + 2 * m * n)   # in
+                + 1 + n + n * n + 2                             # term, θ, μ
+                + T * (m * n + m) + 1)                          # L, dl, value
+        ops = dp_step_ops(n, m)
+    elif kernel == "step":
+        lane = (n + T * m + 2                                   # x0, l, θ, μ
+                + (T + 1) * n + T * (m * n + m) + 1)            # x, L, dl, v
+        ops = dp_step_ops(n, m)
+    elif kernel == "candidate":
+        lane = (T + 1) * n + T * (m + m * n) + 2 + 1
+        ops = fold_ops(n, m) + folded_step_ops(n)
+    elif kernel == "riccati_folded":
+        lane = T * (1 + n + 2 * n * n) + 1 + n + n * n + 1 + 1
+        ops = folded_step_ops(n)
+    else:
+        raise ValueError(kernel)
+    flags = 2 if kernel in ("riccati", "step") else 1   # bool fail flags
+    return float(B * (lane * w + flags) + noise * w), float(B * T * ops)
+
+
+def bound_ms(kernel: str, n: int, m: int, T: int, B: int, dtype
+             ) -> Tuple[float, str]:
+    """The least time one H100 could take for the kernel's work: the larger
+    of its bytes over the memory rate and its operations over the peak rate
+    of ``dtype``; returns (ms, "bytes" or "operations")."""
+    nbytes, ops = kernel_work(kernel, n, m, T, B, dtype)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

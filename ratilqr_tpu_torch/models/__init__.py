@@ -1,2 +1,3 @@
 from ratilqr_tpu_torch.models.examples import (double_integrator, lqr_problem,
-                                               nonlinear_toy, unicycle)
+                                               nonlinear_toy, quadrotor,
+                                               unicycle)

@@ -1,8 +1,10 @@
 """Example problems — counterparts of :mod:`ratilqr_tpu.models.examples`.
 
-Each constructor takes the JAX version's arguments plus ``device``; the
-same arguments build the same problem in both packages.  Callbacks act on
-unbatched tensors and keep their constants on the problem's device.
+Each constructor takes the JAX version's arguments plus ``device``, which
+defaults to ``"cuda"``: the port's problems live on the card unless the
+caller asks for the CPU (``device="cpu"``).  The same arguments build the
+same problem in both packages.  Callbacks act on unbatched tensors and keep
+their constants on the problem's device.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from ratilqr_tpu_torch.ops.tile_model import (lqr_tile_model,
+                                              quadrotor_tile_model,
                                               unicycle_tile_model)
 from ratilqr_tpu_torch.problems import RiskSensitiveProblem
 
@@ -20,7 +23,7 @@ def _const_W(mat, dtype, device):
 
 
 def double_integrator(N: int = 10, noise: float = 0.1,
-                      dtype=torch.float64, device="cpu"
+                      dtype=torch.float64, device="cuda"
                       ) -> RiskSensitiveProblem:
     """2-D single integrator with time-weighted quadratic costs
     (``docs/source/getting-started.md:52-62``)."""
@@ -38,7 +41,7 @@ def double_integrator(N: int = 10, noise: float = 0.1,
 
 
 def lqr_problem(N: int = 10, noise: float = 1.0, dtype=torch.float64,
-                device="cpu") -> RiskSensitiveProblem:
+                device="cuda") -> RiskSensitiveProblem:
     """Linear dynamics + time-invariant quadratic costs
     (``test/ileqg_test.jl:68-69``)."""
     return RiskSensitiveProblem(
@@ -50,7 +53,7 @@ def lqr_problem(N: int = 10, noise: float = 1.0, dtype=torch.float64,
 
 
 def nonlinear_toy(N: int = 10, noise: float = 0.01, dtype=torch.float64,
-                  device="cpu") -> RiskSensitiveProblem:
+                  device="cuda") -> RiskSensitiveProblem:
     """``f = x^1.3 + u^1.5``, ``c = Σ(x^2.5 + u^2.5)``, ``h = 1``
     (``test/ileqg_test.jl:151-155``); valid for non-negative x and u."""
     return RiskSensitiveProblem(
@@ -61,7 +64,7 @@ def nonlinear_toy(N: int = 10, noise: float = 0.01, dtype=torch.float64,
 
 
 def unicycle(N: int = 100, dt: float = 0.1, noise: float = 1e-3,
-             goal=(5.0, 5.0), dtype=torch.float64, device="cpu",
+             goal=(5.0, 5.0), dtype=torch.float64, device="cuda",
              analytic_jacobians: bool = False) -> RiskSensitiveProblem:
     """Stochastic unicycle regulation: state ``(px, py, heading)``, control
     ``(v, ω)``.  ``analytic_jacobians=True`` supplies closed-form ``A/B``
@@ -102,3 +105,39 @@ def unicycle(N: int = 100, dt: float = 0.1, noise: float = 1e-3,
         f=f, c=c, h=h, W=_const_W(noise * np.eye(3), dtype, device), N=N,
         f_jac=f_jac if analytic_jacobians else None,
         tile_model=unicycle_tile_model(dt, goal))
+
+
+def quadrotor(N: int = 50, dt: float = 0.02, noise: float = 1e-5,
+              goal=(1.0, 1.0, 1.0), dtype=torch.float64, device="cuda"
+              ) -> RiskSensitiveProblem:
+    """Simplified 12-state quadrotor (n=12, m=4): position, velocity,
+    attitude (roll/pitch/yaw) and body rates with small-angle rotational
+    kinematics; controls = total thrust offset + body torques."""
+    grav = 9.81
+    g = torch.zeros(12, dtype=dtype, device=device)
+    g[0:3] = torch.as_tensor(goal, dtype=dtype, device=device)
+
+    def f(x, u):
+        pos, vel = x[0:3], x[3:6]
+        att, rate = x[6:9], x[9:12]          # roll, pitch, yaw + body rates
+        thrust = grav + u[0]
+        phi, th = att[0], att[1]
+        acc = torch.stack([
+            thrust * torch.sin(th),
+            -thrust * torch.sin(phi) * torch.cos(th),
+            thrust * torch.cos(phi) * torch.cos(th) - grav,
+        ])
+        return torch.cat([pos + dt * vel, vel + dt * acc, att + dt * rate,
+                          rate + dt * u[1:4] * 20.0])
+
+    def c(k, x, u):
+        dx = x - g
+        return 0.05 * (dx @ dx) + 0.1 * (u @ u)
+
+    def h(x):
+        dx = x - g
+        return 20.0 * (dx @ dx)
+
+    return RiskSensitiveProblem(
+        f=f, c=c, h=h, W=_const_W(noise * np.eye(12), dtype, device), N=N,
+        tile_model=quadrotor_tile_model(dt, grav, goal))

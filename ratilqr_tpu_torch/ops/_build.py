@@ -1,10 +1,13 @@
 """Build the CUDA kernels from ``ratilqr_tpu_torch/csrc`` and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-written to ``ratilqr_tpu_torch/_build/<content hash>/``; ``ctypes`` loads
-it.  The build runs once per process, at the first launch on a CUDA
-tensor.  A missing ``nvcc`` or a failed build raises; nothing falls back.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` twice, once per
+working type (``-DRQ_DTYPE=0`` float32, ``1`` float64), each translation
+unit in its own process, all started together, and links the objects into
+one shared library with a plain C interface (no PyTorch headers), written
+to ``ratilqr_tpu_torch/_build/<content hash>/``; ``ctypes`` loads it.  Each
+kernel has one C entry point per type (``ratilqr_step_f32``, ...).  The
+build runs once per process, at the first launch on a CUDA tensor.  A
+missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Each kernel wrapper adds one to ``launch_counts[<kernel>]`` for every
 launch it makes, so a run can show which kernels its path went through.
@@ -12,22 +15,30 @@ launch it makes, so a run can show which kernels its path went through.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libratilqr_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+LINK_FLAGS = ("-shared",)
 # The CUDA toolkit's default install prefix, used when nvcc is not on PATH.
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+# Entry-point suffix of each working type, indexed by its RQ_DTYPE code
+# (csrc/dtype.cuh).
+_SUFFIXES = ("f32", "f64")
+MAX_PARAMS = 8   # rq::kMaxParams (csrc/tile_model.cuh)
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -42,7 +53,7 @@ def _source_files():
 
 def source_hash() -> str:
     """Hash of every kernel source and the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _source_files():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -60,37 +71,115 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def _run(cmd):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          cwd=str(CSRC_DIR))
+    return proc, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the kernels unless this source hash is already built;
-    returns the library's path.  The compiler's register and spill report
-    is kept beside it in ``build.log``."""
+    returns the library's path.  Every ``.cu`` compiles once per working
+    type, each in its own ``nvcc`` process, all started together;
+    ``build.log`` beside the library keeps each one's wall time
+    (``nvcc <file> <type>: <s> s``) and the compiler's register and spill
+    report."""
     out_dir = BUILD_DIR / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    sources = [str(p) for p in _source_files() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          cwd=str(CSRC_DIR))
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    nvcc, tag = _nvcc(), os.getpid()
+    units = [(p, code, suffix) for p in _source_files() if p.suffix == ".cu"
+             for code, suffix in enumerate(_SUFFIXES)]
+    objects = [out_dir / f"{p.stem}.{suffix}.{tag}.o"
+               for p, _, suffix in units]
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        runs = list(pool.map(_run, [
+            [nvcc, *COMPILE_FLAGS, f"-DRQ_DTYPE={code}", "-o", str(o), str(p)]
+            for (p, code, _), o in zip(units, objects)]))
+    log = []
+    for (src, _, suffix), (proc, secs) in zip(units, runs):
+        log.append(f"nvcc {src.name} {suffix}: {secs:.1f} s, "
+                   f"exit {proc.returncode}")
+        log.append(proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text("\n".join(log))
+    failed = [(src, suffix, proc)
+              for (src, _, suffix), (proc, _) in zip(units, runs)
+              if proc.returncode != 0]
+    if failed:
+        src, suffix, proc = failed[0]
+        raise RuntimeError(f"nvcc failed on {src.name} ({suffix}) with exit "
+                           f"code {proc.returncode}:\n{proc.stderr[-4000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    proc, _ = _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)])
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed with exit code "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    for o in objects:
+        o.unlink()
     os.replace(tmp, lib)
     return lib
 
 
+def ptxas_report(log: str):
+    """``(kernel, registers, spill stores, spill loads, stack frame)`` per
+    entry function, from the ``-Xptxas -v`` lines of a ``build.log``
+    (bytes; names demangled where ``c++filt`` is found)."""
+    rows, name, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), frame[1], frame[2],
+                         frame[0]))
+            name, frame = None, (0, 0, 0)
+    cxxfilt = shutil.which("c++filt")
+    if rows and cxxfilt:
+        names = subprocess.run([cxxfilt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout
+        rows = [(n, *r[1:]) for n, r in zip(names.splitlines(), rows)]
+    return rows
+
+
+def report(lib: Path):
+    """Lines on a build: each translation unit's nvcc time, then each
+    kernel's registers, spills and stack frame."""
+    log = (lib.parent / "build.log").read_text()
+    lines = [line for line in log.splitlines() if line.startswith("nvcc ")]
+    return lines + [f"ptxas {name}: {regs} registers, {stores} B spill "
+                    f"stores, {loads} B spill loads, {stack} B stack frame"
+                    for name, regs, stores, loads, stack in ptxas_report(log)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_D = ctypes.c_double
-_SIGNATURES = {
-    "ratilqr_riccati": [_I] * 9 + [_P] * 18 + [_P] * 11 + [_P],
-    "ratilqr_step": [_I] * 4 + [_D] * 4 + [_P] * 7 + [_P] * 6 + [_P],
-    "ratilqr_candidate": [_I] * 4 + [_D] * 4 + [_P] * 8 + [_P] * 3 + [_P],
-    "ratilqr_riccati_folded": [_I] * 5 + [_P] * 11 + [_P] * 2 + [_P],
+_PARAMS = ctypes.POINTER(ctypes.c_double)   # host array of MAX_PARAMS
+_SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
+    "ratilqr_riccati": [_I] * 8 + [_P] * 18 + [_P] * 11 + [_P],
+    "ratilqr_step": [_I] * 3 + [_PARAMS] + [_P] * 7 + [_P] * 6 + [_P],
+    "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
+    "ratilqr_riccati_folded": [_I] * 4 + [_P] * 11 + [_P] * 2 + [_P],
 }
+
+
+def params_array(params):
+    """A device model's parameters as the kernels' host array of
+    ``MAX_PARAMS`` doubles, zero-padded; raises for more than that."""
+    if len(params) > MAX_PARAMS:
+        raise ValueError(f"a device model takes at most {MAX_PARAMS} "
+                         f"parameters, got {len(params)}")
+    padded = list(map(float, params)) + [0.0] * (MAX_PARAMS - len(params))
+    return (ctypes.c_double * MAX_PARAMS)(*padded)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,17 +187,23 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for suffix in _SUFFIXES:
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def entry(name: str, dtype):
+    """The C entry point of kernel ``name`` for ``dtype``."""
+    return getattr(library(), f"{name}_{dtype_suffix(dtype)}")
 
 
 def check(rc: int, kernel: str) -> None:
     """Raise on a refused or failed launch (``cudaGetLastError`` code)."""
     if rc == -1:
         raise NotImplementedError(f"{kernel}: no kernel instantiated for "
-                                  "this dtype and shape")
+                                  "this shape or model")
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
                            f"cudaError {rc}")
@@ -119,14 +214,14 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def dtype_code(dtype) -> int:
+def dtype_suffix(dtype) -> str:
+    """``"f32"`` or ``"f64"``; raises for a type the kernels do not take."""
     import torch
-    if dtype == torch.float32:
-        return 0
-    if dtype == torch.float64:
-        return 1
-    raise NotImplementedError(f"CUDA kernels take float32 or float64, not "
-                              f"{dtype}")
+    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
+    if suffix is None:
+        raise NotImplementedError(f"CUDA kernels take float32 or float64, "
+                                  f"not {dtype}")
+    return suffix
 
 
 def lane_minor(x):
@@ -137,3 +232,4 @@ def lane_minor(x):
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+

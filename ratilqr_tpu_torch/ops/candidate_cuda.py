@@ -48,15 +48,19 @@ def candidate_bank(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
     if x_ref.device.type != "cuda":
         raise NotImplementedError(f"no candidate kernel for device "
                                   f"{x_ref.device}")
-    return _candidate_bank_cuda(problem, x_ref, l_cand, L, mu, theta, noise)
+    return launch_candidate(*candidate_layout(problem, x_ref, l_cand, L, mu,
+                                              theta, noise))
 
 
-def _candidate_bank_cuda(problem, x_ref, l_cand, L, mu, theta, noise):
+def candidate_layout(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
+                     mu: Tensor, theta: Tensor, noise: NoiseModel):
+    """Check a bank against what kernel C takes and copy it to the kernel's
+    lane-minor layout; returns the arguments of :func:`launch_candidate`."""
     tm = device_model(problem)
     Bn, T, m = l_cand.shape
     n = tm.n
     dtype, device = x_ref.dtype, x_ref.device
-    code = _build.dtype_code(dtype)
+    _build.dtype_suffix(dtype)   # raises for a type the kernel does not take
     for name, x, shape in (("x_ref", x_ref, (Bn, T + 1, n)),
                            ("l_cand", l_cand, (Bn, T, tm.m)),
                            ("L", L, (Bn, T, tm.m, n)),
@@ -72,17 +76,22 @@ def _candidate_bank_cuda(problem, x_ref, l_cand, L, mu, theta, noise):
     ins = [lm(x_ref), lm(l_cand), lm(L), noise.W.contiguous(),
            noise.W_inv.contiguous(), noise.logdet_W.contiguous(),
            theta.contiguous(), mu.contiguous()]
-    x_scratch = torch.empty((T + 1, n, Bn), dtype=dtype, device=device)
+    return tm, ins
+
+
+def launch_candidate(tm, ins) -> CandidateOut:
+    """Launch kernel C on arguments prepared by :func:`candidate_layout`."""
+    (T1, n, Bn), T = ins[0].shape, ins[1].shape[0]
+    dtype, device = ins[0].dtype, ins[0].device
+    x_scratch = torch.empty((T1, n, Bn), dtype=dtype, device=device)
     value = torch.empty(Bn, dtype=dtype, device=device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
-    params = (tuple(tm.params) + (0.0,) * 4)[:4]
-    lib = _build.library()
+    params = _build.params_array(tm.params)
+    launch = _build.entry("ratilqr_candidate", dtype)
     with torch.cuda.device(device):
-        rc = lib.ratilqr_candidate(code, tm.model_id, Bn, T, *params,
-                                   *map(_build.ptr, ins),
-                                   *map(_build.ptr, (x_scratch, value,
-                                                     m_fail)),
-                                   _build.stream_of(value))
+        rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
+                    *map(_build.ptr, (x_scratch, value, m_fail)),
+                    _build.stream_of(value))
     _build.check(rc, KERNEL)
     _build.launch_counts[KERNEL] += 1
     return CandidateOut(value, m_fail)

@@ -25,8 +25,8 @@ from ratilqr_tpu_torch.ops.riccati import _riccati_core, _riccati_folded_core
 Tensor = torch.Tensor
 KERNEL = "riccati"
 KERNEL_FOLDED = "riccati_folded"
-SHAPES = ((3, 2), (2, 2))   # (n, m) kernel A is instantiated for
-FOLDED_SHAPES = (3, 2)      # n kernel D is instantiated for
+SHAPES = ((3, 2), (2, 2), (12, 4))   # (n, m) kernel A is instantiated for
+FOLDED_SHAPES = (3, 2, 12)           # n kernel D is instantiated for
 
 
 class BankDP(NamedTuple):
@@ -84,18 +84,22 @@ def riccati_bank(approx, theta: Tensor, mu: Tensor,
     if approx.q.device.type != "cuda":
         raise NotImplementedError(f"no Riccati kernel for device "
                                   f"{approx.q.device}")
-    return _riccati_bank_cuda(approx, theta, mu, L_in, dl_in, slim)
+    return launch_riccati(*riccati_layout(approx, theta, mu, L_in, dl_in),
+                          slim=slim)
 
 
-def _riccati_bank_cuda(approx, theta, mu, L_in, dl_in, slim):
+def riccati_layout(approx, theta: Tensor, mu: Tensor,
+                   L_in: Optional[Tensor] = None,
+                   dl_in: Optional[Tensor] = None):
+    """Check a bank against what kernel A takes and copy it to the kernel's
+    lane-minor layout; returns the arguments of :func:`launch_riccati`."""
     Bn, T, n = approx.A.shape[0], approx.A.shape[1], approx.A.shape[-1]
     m = approx.B.shape[-1]
     dtype, device = approx.A.dtype, approx.A.device
     if (n, m) not in SHAPES:
         raise NotImplementedError(f"riccati kernel: (n, m) = {(n, m)} is not "
                                   f"instantiated (have {SHAPES})")
-    code = _build.dtype_code(dtype)
-    optimizing = L_in is None
+    _build.dtype_suffix(dtype)   # raises for a type the kernel does not take
     w_shared = approx.W.dim() == 3
     expect = {"q": (Bn, T), "q_vec": (Bn, T, n), "Q": (Bn, T, n, n),
               "r": (Bn, T, m), "R": (Bn, T, m, m), "P": (Bn, T, m, n),
@@ -129,6 +133,14 @@ def _riccati_bank_cuda(approx, theta, mu, L_in, dl_in, slim):
            lm(approx.Q_term), theta.contiguous(), mu.contiguous(),
            None if L_in is None else lm(L_in),
            None if dl_in is None else lm(dl_in)]
+    return ins, (n, m, w_shared)
+
+
+def launch_riccati(ins, shape, slim: bool):
+    """Launch kernel A on arguments prepared by :func:`riccati_layout`."""
+    n, m, w_shared = shape
+    (T, Bn), dtype, device = ins[0].shape, ins[0].dtype, ins[0].device
+    optimizing, has_dl = ins[-2] is None, ins[-1] is not None
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=device)
@@ -147,12 +159,11 @@ def _riccati_bank_cuda(approx, theta, mu, L_in, dl_in, slim):
     h_fail = empty(Bn, dt=torch.bool)
     outs = [value, s, s_vec, S, g, G, H, L, dl, m_fail, h_fail]
 
-    lib = _build.library()
+    launch = _build.entry("ratilqr_riccati", dtype)
     with torch.cuda.device(device):
-        rc = lib.ratilqr_riccati(
-            code, n, m, Bn, T, int(optimizing), int(slim), int(w_shared),
-            int(dl_in is not None), *map(_build.ptr, ins),
-            *map(_build.ptr, outs), _build.stream_of(value))
+        rc = launch(n, m, Bn, T, int(optimizing), int(slim), int(w_shared),
+                    int(has_dl), *map(_build.ptr, ins),
+                    *map(_build.ptr, outs), _build.stream_of(value))
     _build.check(rc, KERNEL)
     _build.launch_counts[KERNEL] += 1
 
@@ -228,12 +239,11 @@ def launch_folded(ins, w_shared: bool) -> BankFolded:
     n, T, Bn = ins[3].shape[-3], ins[0].shape[0], ins[0].shape[-1]
     value = torch.empty(Bn, dtype=ins[0].dtype, device=ins[0].device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=value.device)
-    lib = _build.library()
+    launch = _build.entry("ratilqr_riccati_folded", value.dtype)
     with torch.cuda.device(value.device):
-        rc = lib.ratilqr_riccati_folded(
-            _build.dtype_code(value.dtype), n, Bn, T, int(w_shared),
-            *map(_build.ptr, ins), _build.ptr(value), _build.ptr(m_fail),
-            _build.stream_of(value))
+        rc = launch(n, Bn, T, int(w_shared), *map(_build.ptr, ins),
+                    _build.ptr(value), _build.ptr(m_fail),
+                    _build.stream_of(value))
     _build.check(rc, KERNEL_FOLDED)
     _build.launch_counts[KERNEL_FOLDED] += 1
     return BankFolded(value, m_fail)

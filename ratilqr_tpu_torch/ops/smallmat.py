@@ -5,6 +5,12 @@ same operation order, over arbitrary leading batch axes with the small
 matrix in the LAST axes.  They are also the algebra of the CUDA kernels
 (``csrc/smallmat.cuh``), which divide by the pivot exactly as here.
 
+The factor, products and triangular solves unroll over ONE index (the
+column of the factor, the summation index, the row of a solve) and run
+every element of that column, row or result at once, in the same
+per-element order: an n x n product is 2n tensor operations, not n³, so the
+eager plain path stays usable at n = 12.
+
 A failed factorization (matrix not positive definite) shows up as NaN —
 ``sqrt`` of a negative pivot — and :func:`chol_ok` requires every pivot to
 be finite AND strictly positive (Julia ``isposdef``).
@@ -18,43 +24,52 @@ Tensor = torch.Tensor
 
 def cholesky(M: Tensor) -> Tensor:
     """Lower-triangular Cholesky factor of ``M`` (..., n, n); NaN on
-    failure."""
+    failure.  Column by column: every entry of column ``j`` at once."""
     n = M.shape[-1]
-    L = [[None] * n for _ in range(n)]
-    for i in range(n):
-        for j in range(i + 1):
-            acc = M[..., i, j]
-            for k in range(j):
-                acc = acc - L[i][k] * L[j][k]
-            L[i][j] = torch.sqrt(acc) if i == j else acc / L[j][j]
-    z = torch.zeros_like(M[..., 0, 0])
-    rows = [torch.stack([L[i][j] if j <= i else z for j in range(n)], -1)
-            for i in range(n)]
-    return torch.stack(rows, -2)
+    cols = []
+    for j in range(n):
+        acc = M[..., j:, j]
+        for k in range(j):
+            acc = acc - cols[k][..., j - k:] * cols[k][..., j - k, None]
+        pivot = torch.sqrt(acc[..., :1])
+        cols.append(torch.cat([pivot, acc[..., 1:] / pivot], -1))
+    z = torch.zeros_like(M[..., 0, :1])
+    return torch.stack([torch.cat([z.expand(M.shape[:-2] + (j,)), c], -1)
+                        for j, c in enumerate(cols)], -1)
+
+
+def _lower(L: Tensor, B: Tensor) -> Tensor:
+    """Solve ``L Y = B`` for ``B`` (..., n, p), row by row."""
+    y = []
+    for i in range(L.shape[-1]):
+        acc = B[..., i, :]
+        for k in range(i):
+            acc = acc - L[..., i, k, None] * y[k]
+        y.append(acc / L[..., i, i, None])
+    return torch.stack(y, -2)
+
+
+def _upper_T(L: Tensor, Y: Tensor) -> Tensor:
+    """Solve ``Lᵀ X = Y`` for ``Y`` (..., n, p), row by row from the
+    last."""
+    n = L.shape[-1]
+    x = [None] * n
+    for i in reversed(range(n)):
+        acc = Y[..., i, :]
+        for k in range(i + 1, n):
+            acc = acc - L[..., k, i, None] * x[k]
+        x[i] = acc / L[..., i, i, None]
+    return torch.stack(x, -2)
 
 
 def solve_triangular_lower(L: Tensor, b: Tensor) -> Tensor:
     """Solve ``L y = b`` with ``L`` lower-triangular (..., n, n)."""
-    n = L.shape[-1]
-    y = [None] * n
-    for i in range(n):
-        acc = b[..., i]
-        for k in range(i):
-            acc = acc - L[..., i, k] * y[k]
-        y[i] = acc / L[..., i, i]
-    return torch.stack(y, -1)
+    return _lower(L, b[..., None])[..., 0]
 
 
 def solve_triangular_upper_T(L: Tensor, y: Tensor) -> Tensor:
     """Solve ``Lᵀ x = y`` with ``L`` lower-triangular (..., n, n)."""
-    n = L.shape[-1]
-    x = [None] * n
-    for i in reversed(range(n)):
-        acc = y[..., i]
-        for k in range(i + 1, n):
-            acc = acc - L[..., k, i] * x[k]
-        x[i] = acc / L[..., i, i]
-    return torch.stack(x, -1)
+    return _upper_T(L, y[..., None])[..., 0]
 
 
 def cho_solve_vec(L: Tensor, b: Tensor) -> Tensor:
@@ -63,17 +78,14 @@ def cho_solve_vec(L: Tensor, b: Tensor) -> Tensor:
 
 
 def cho_solve_mat(L: Tensor, B: Tensor) -> Tensor:
-    """``M⁻¹ B`` column by column; ``B`` (..., n, p)."""
-    return torch.stack([cho_solve_vec(L, B[..., :, j])
-                        for j in range(B.shape[-1])], -1)
+    """``M⁻¹ B`` for ``B`` (..., n, p): every column's solve at once."""
+    return _upper_T(L, _lower(L, B))
 
 
 def cho_inverse(L: Tensor) -> Tensor:
     """``M⁻¹`` from the Cholesky factor ``L`` of ``M`` (..., n, n)."""
-    n = L.shape[-1]
-    eye = torch.eye(n, dtype=L.dtype, device=L.device)
-    return torch.stack([cho_solve_vec(L, eye[:, j].expand(L.shape[:-1]))
-                        for j in range(n)], -1)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return cho_solve_mat(L, eye.expand(L.shape))
 
 
 def _diag(L: Tensor) -> Tensor:
@@ -99,20 +111,20 @@ def sym(M: Tensor) -> Tensor:
 
 
 def mm(A: Tensor, B: Tensor) -> Tensor:
-    """Unrolled small-matrix product ``A @ B`` for (..., p, q) × (..., q, r)
-    as elementwise multiply-adds in index order."""
-    p, q = A.shape[-2], A.shape[-1]
-    r = B.shape[-1]
-    rows = [torch.stack([sum(A[..., i, k] * B[..., k, j] for k in range(q))
-                         for j in range(r)], -1) for i in range(p)]
-    return torch.stack(rows, -2)
+    """Small-matrix product ``A @ B`` for (..., p, q) × (..., q, r) as
+    elementwise multiply-adds in summation-index order."""
+    acc = A[..., :, 0, None] * B[..., None, 0, :]
+    for k in range(1, A.shape[-1]):
+        acc = acc + A[..., :, k, None] * B[..., None, k, :]
+    return acc
 
 
 def mv(A: Tensor, v: Tensor) -> Tensor:
-    """Unrolled small matrix-vector product for (..., p, q) × (..., q)."""
-    p, q = A.shape[-2], A.shape[-1]
-    return torch.stack([sum(A[..., i, k] * v[..., k] for k in range(q))
-                        for i in range(p)], -1)
+    """Small matrix-vector product for (..., p, q) × (..., q)."""
+    acc = A[..., :, 0] * v[..., 0, None]
+    for k in range(1, A.shape[-1]):
+        acc = acc + A[..., :, k] * v[..., k, None]
+    return acc
 
 
 def mt(A: Tensor) -> Tensor:

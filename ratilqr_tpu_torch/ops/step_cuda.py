@@ -52,15 +52,18 @@ def step_optimize_bank(problem, x0: Tensor, l: Tensor, theta: Tensor,
         return step_optimize_bank_plain(problem, x0, l, theta, mu, noise)
     if x0.device.type != "cuda":
         raise NotImplementedError(f"no step kernel for device {x0.device}")
-    return _step_bank_cuda(problem, x0, l, theta, mu, noise)
+    return launch_step(*step_layout(problem, x0, l, theta, mu, noise))
 
 
-def _step_bank_cuda(problem, x0, l, theta, mu, noise):
+def step_layout(problem, x0: Tensor, l: Tensor, theta: Tensor, mu: Tensor,
+                noise: NoiseModel):
+    """Check a bank against what kernel B takes and copy it to the kernel's
+    lane-minor layout; returns the arguments of :func:`launch_step`."""
     tm = device_model(problem)
     Bn, T, m = l.shape
     n = x0.shape[-1]
     dtype, device = x0.dtype, x0.device
-    code = _build.dtype_code(dtype)
+    _build.dtype_suffix(dtype)   # raises for a type the kernel does not take
     for name, x, shape in (("x0", x0, (Bn, tm.n)), ("l", l, (Bn, T, tm.m)),
                            ("theta", theta, (Bn,)), ("mu", mu, (Bn,)),
                            ("W", noise.W, (T, n, n)),
@@ -73,20 +76,25 @@ def _step_bank_cuda(problem, x0, l, theta, mu, noise):
     lm = _build.lane_minor
     ins = [lm(l), lm(x0), noise.W.contiguous(), noise.W_inv.contiguous(),
            noise.logdet_W.contiguous(), theta.contiguous(), mu.contiguous()]
+    return tm, ins
+
+
+def launch_step(tm, ins) -> StepOut:
+    """Launch kernel B on arguments prepared by :func:`step_layout`."""
+    (T, m, Bn), n = ins[0].shape, tm.n
+    dtype, device = ins[0].dtype, ins[0].device
     x = torch.empty((T + 1, n, Bn), dtype=dtype, device=device)
     value = torch.empty(Bn, dtype=dtype, device=device)
     L = torch.empty((T, m, n, Bn), dtype=dtype, device=device)
     dl = torch.empty((T, m, Bn), dtype=dtype, device=device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     h_fail = torch.empty(Bn, dtype=torch.bool, device=device)
-    params = (tuple(tm.params) + (0.0,) * 4)[:4]
-    lib = _build.library()
+    params = _build.params_array(tm.params)
+    launch = _build.entry("ratilqr_step", dtype)
     with torch.cuda.device(device):
-        rc = lib.ratilqr_step(code, tm.model_id, Bn, T, *params,
-                              *map(_build.ptr, ins),
-                              *map(_build.ptr, (x, value, L, dl, m_fail,
-                                                h_fail)),
-                              _build.stream_of(value))
+        rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
+                    *map(_build.ptr, (x, value, L, dl, m_fail, h_fail)),
+                    _build.stream_of(value))
     _build.check(rc, KERNEL)
     _build.launch_counts[KERNEL] += 1
     return StepOut(x.movedim(-1, 0), value, L.movedim(-1, 0),

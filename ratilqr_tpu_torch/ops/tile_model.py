@@ -10,11 +10,12 @@ carries two things:
     ``f``/``c``/``h``;
   - the device model the kernels run: ``model_id`` names a ``__device__``
     model in ``csrc/tile_model.cuh`` and ``params`` are its scalar
-    parameters, passed to the kernel by value.
+    parameters, passed to the kernel by value (at most
+    ``_build.MAX_PARAMS`` of them).
 
-Only the unicycle and the quadratic integrator (LQR) have device models so
-far; on CUDA the fused kernels raise ``NotImplementedError`` for any other
-problem.
+The unicycle, the quadratic integrator (LQR) and the quadrotor have device
+models; on CUDA the fused kernels raise ``NotImplementedError`` for any
+other problem.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 # Device model ids, shared with csrc/tile_model.cuh.
 UNICYCLE = 0
 LQR = 1
+QUADROTOR = 2
 
 
 def _mat(rows):
@@ -42,7 +44,7 @@ class TileModel:
       quad: ``(k, x, u) -> (q, q_vec, Q, r, R, P)`` — stage cost and its
         exact derivatives (``P = c_ux``).
       term: ``x -> (q, q_vec, Q)`` — terminal cost and derivatives.
-      model_id: device model id (``UNICYCLE`` or ``LQR``).
+      model_id: device model id (``UNICYCLE``, ``LQR`` or ``QUADROTOR``).
       params: the device model's scalar parameters.
       n, m: state and control dimensions.
     """
@@ -60,10 +62,10 @@ def device_model(problem) -> TileModel:
     model; raises ``NotImplementedError`` otherwise (never a silent plain
     path)."""
     tm = problem.tile_model
-    if tm is None or tm.model_id not in (UNICYCLE, LQR):
+    if tm is None or tm.model_id not in (UNICYCLE, LQR, QUADROTOR):
         raise NotImplementedError(
             "the fused CUDA kernels need a tile model with a device model "
-            "(unicycle or LQR); this problem has none")
+            "(unicycle, LQR or quadrotor); this problem has none")
     return tm
 
 
@@ -116,6 +118,75 @@ def unicycle_tile_model(dt: float, goal) -> TileModel:
 
     return TileModel(f_jac=f_jac, quad=quad, term=term, model_id=UNICYCLE,
                      params=(float(dt), gx, gy), n=3, m=2)
+
+
+def quadrotor_tile_model(dt: float, grav: float, goal) -> TileModel:
+    """Tile model of :func:`ratilqr_tpu_torch.models.quadrotor` (n=12,
+    m=4): the closed-form Jacobians of the small-angle quadrotor, where only
+    the acceleration rows (thrust through roll/pitch trigonometry) are
+    nonlinear.  Device parameters ``(dt, grav, goal_x, goal_y, goal_z)``."""
+    goals = [float(g) for g in goal] + [0.0] * 9
+
+    def f_jac(x, u):
+        phi, th = x[..., 6], x[..., 7]
+        one = torch.ones_like(phi)
+        zero = torch.zeros_like(phi)
+        sph, cph = torch.sin(phi), torch.cos(phi)
+        sth, cth = torch.sin(th), torch.cos(th)
+        thrust = grav + u[..., 0]
+        acc = [thrust * sth, -thrust * sph * cth, thrust * cph * cth - grav]
+        x_next = torch.stack(
+            [x[..., i] + dt * x[..., 3 + i] for i in range(3)]
+            + [x[..., 3 + i] + dt * acc[i] for i in range(3)]
+            + [x[..., 6 + i] + dt * x[..., 9 + i] for i in range(3)]
+            + [x[..., 9 + i] + dt * 20.0 * u[..., 1 + i] for i in range(3)],
+            -1)
+        A = [[one if i == j else zero for j in range(12)] for i in range(12)]
+        for i in range(3):   # pos <- vel, att <- rate
+            A[i][3 + i] = dt * one
+            A[6 + i][9 + i] = dt * one
+        # d acc / d(phi, theta), acc = thrust·(sinθ, −sinφ cosθ, cosφ cosθ)
+        A[3][7] = dt * thrust * cth
+        A[4][6] = -dt * thrust * cph * cth
+        A[4][7] = dt * thrust * sph * sth
+        A[5][6] = -dt * thrust * sph * cth
+        A[5][7] = -dt * thrust * cph * sth
+        B = [[zero] * 4 for _ in range(12)]
+        B[3][0] = dt * sth   # d acc / d u0: the thrust direction
+        B[4][0] = -dt * sph * cth
+        B[5][0] = dt * cph * cth
+        for i in range(3):   # rate <- 20·torque
+            B[9 + i][1 + i] = dt * 20.0 * one
+        return x_next, _mat(A), _mat(B)
+
+    def delta(x):
+        return torch.stack([x[..., i] - goals[i] for i in range(12)], -1)
+
+    def quad(k, x, u):
+        del k
+        dx = delta(x)
+        q = (0.05 * sum(dx[..., i] * dx[..., i] for i in range(12))
+             + 0.1 * sum(u[..., j] * u[..., j] for j in range(4)))
+        one = torch.ones_like(q)
+        zero = torch.zeros_like(q)
+        Q = _mat([[0.1 * one if i == j else zero for j in range(12)]
+                  for i in range(12)])
+        R = _mat([[0.2 * one if i == j else zero for j in range(4)]
+                  for i in range(4)])
+        P = _mat([[zero] * 12 for _ in range(4)])
+        return q, 0.1 * dx, Q, 0.2 * u, R, P
+
+    def term(x):
+        dx = delta(x)
+        q = 20.0 * sum(dx[..., i] * dx[..., i] for i in range(12))
+        one = torch.ones_like(q)
+        zero = torch.zeros_like(q)
+        Q = _mat([[40.0 * one if i == j else zero for j in range(12)]
+                  for i in range(12)])
+        return q, 40.0 * dx, Q
+
+    return TileModel(f_jac=f_jac, quad=quad, term=term, model_id=QUADROTOR,
+                     params=(float(dt), float(grav), *goals[:3]), n=12, m=4)
 
 
 def lqr_tile_model(x_weight: float = 1.0, u_weight: float = 1.0,

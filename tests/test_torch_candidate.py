@@ -54,7 +54,7 @@ def test_plain_candidate_matches_pallas_kernel_interpret(maker, n, m,
                                                          recompute):
     f32 = torch.float32
     jp = getattr(jm, maker)(N=T, dtype=jnp.float32)
-    tp = getattr(tm, maker)(N=T, dtype=f32)
+    tp = getattr(tm, maker)(N=T, dtype=f32, device="cpu")
     x_refs, ls, Ls = _inputs(jp, n, m, np.float32)
     Wm = jax.vmap(jp.W)(jnp.arange(T)).astype(jnp.float32)
     chol = jsm.cholesky(Wm)
@@ -78,7 +78,7 @@ def test_plain_candidate_matches_pallas_kernel_interpret(maker, n, m,
 def test_plain_candidate_matches_folded_xla_f64(maker, n, m):
     f64 = torch.float64
     jp = getattr(jm, maker)(N=T, dtype=jnp.float64)
-    tp = getattr(tm, maker)(N=T, dtype=f64)
+    tp = getattr(tm, maker)(N=T, dtype=f64, device="cpu")
     x_refs, ls, Ls = _inputs(jp, n, m, np.float64, seed=1)
     want_v, want_f = jax.vmap(lambda xr, l, L, mu, th: jeval(
         jfold(jp, xr, l, L, mu), theta=th))(x_refs, ls, Ls, MUS, THETAS)

@@ -1,6 +1,7 @@
-"""The four CUDA kernels against their plain PyTorch versions, the
-folded-evaluation bank against the fused-candidate bank, and the host-sync
-and busy-time helpers, on a CUDA device (skipped without one).
+"""The four CUDA kernels against their plain PyTorch versions (unicycle,
+LQR and the n=12 quadrotor), the folded-evaluation bank against the
+fused-candidate bank, and the host-sync and busy-time helpers, on a CUDA
+device (skipped without one).
 
 This file imports no JAX, so it also runs on a machine that has none:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -16,6 +17,7 @@ from ratilqr_tpu_torch.ops import _build  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
+QUADROTOR = ("quadrotor", 12, 37)   # n=12, m=4
 
 
 @pytest.fixture
@@ -30,27 +32,30 @@ def device():
                          ids=lambda v: "-".join(k for k, b in v.items() if b)
                          or "evaluating")
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133),
-                                       ("lqr", 7, 5)])
+                                       ("lqr", 7, 5), QUADROTOR])
 def test_riccati_kernel_matches_plain(device, model, T, B, variant, dtype):
     kc.check_riccati(model, T, B, dtype, device, **variant)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
-                                       ("negative_curvature", 7, 6)])
+                                       ("negative_curvature", 7, 6),
+                                       QUADROTOR])
 def test_step_kernel_matches_plain(device, model, T, B, dtype):
     kc.check_step(model, T, B, dtype, device)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5)])
+@pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
+                                       QUADROTOR])
 def test_candidate_kernel_matches_plain(device, model, T, B, dtype):
     kc.check_candidate(model, T, B, dtype, device)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shared_w", [True, False])
-@pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5)])
+@pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
+                                       QUADROTOR])
 def test_riccati_folded_kernel_matches_plain(device, model, T, B, shared_w,
                                              dtype):
     kc.check_riccati_folded(model, T, B, dtype, device, shared_w)
@@ -84,9 +89,9 @@ def test_fold_path_bank_matches_fused_candidate_bank(device):
                                atol=0)
 
 
-def test_fixtures_fail_where_they_should(device):
-    m_fail, _ = kc.expect_fail_pattern("unicycle", 20, 10, torch.float32,
-                                       device)
+@pytest.mark.parametrize("model", ["unicycle", "quadrotor"])
+def test_fixtures_fail_where_they_should(device, model):
+    m_fail, _ = kc.expect_fail_pattern(model, 20, 10, torch.float32, device)
     assert m_fail == 2, "the two θ = 1e6 lanes must fail M"
     _, h_fail = kc.expect_fail_pattern("negative_curvature", 7, 6,
                                        torch.float32, device)

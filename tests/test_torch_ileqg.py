@@ -52,12 +52,13 @@ def run_cold_and_warm(T, cfg_kw):
     jbank = J.make_batched_solver(junicycle(N=T), J.ILEQGConfig(**cfg_kw))
     cfg_t = convert.config_from_dict(
         convert.config_to_dict(J.ILEQGConfig(**cfg_kw)))
-    tbank = P.make_batched_solver(tunicycle(N=T), cfg_t)
+    tbank = P.make_batched_solver(tunicycle(N=T, device="cpu"), cfg_t)
     x0 = np.zeros(3)
     u0 = np.zeros((T, 2))
     cold_j = jbank(jnp.asarray(x0), jnp.asarray(u0), jnp.asarray(THETAS))
     cold_t = tbank(torch.tensor(x0), torch.tensor(u0), torch.tensor(THETAS))
-    carried = convert.result_from_numpy(convert.result_to_numpy(cold_j))
+    carried = convert.result_from_numpy(convert.result_to_numpy(cold_j),
+                                         device="cpu")
     u_warm = carried.l[0].numpy()
     warm_j = jbank(jnp.asarray(x0 + X_MPC), jnp.asarray(u_warm),
                    jnp.asarray(THETAS))
@@ -78,7 +79,7 @@ def test_bank_matches_jax_cold_and_warm(config):
 
 
 def test_single_solve_is_a_one_lane_bank():
-    prob = lqr_problem(N=8, noise=0.01)
+    prob = lqr_problem(N=8, noise=0.01, device="cpu")
     cfg = P.ILEQGConfig(iter_max=20)
     x0 = torch.tensor([2.0, -1.0], dtype=torch.float64)
     u0 = torch.zeros((8, 2), dtype=torch.float64)
@@ -107,7 +108,8 @@ def test_config_and_result_cross_packages():
         ("value", (2,)), ("eps_history", (2, 0, 2)), ("eps_count", (2,)),
         ("iterations", (2,)), ("d_final", (2,)), ("mu_final", (2,)),
         ("failed", (2,)))}
-    res = convert.result_from_numpy(arrays, dtype=torch.float32)
+    res = convert.result_from_numpy(arrays, device="cpu",
+                                   dtype=torch.float32)
     assert res.l.dtype == torch.float32 and res.failed.dtype == torch.bool
     assert res.iterations.dtype == torch.int32
     back = convert.result_to_numpy(res)

@@ -50,7 +50,7 @@ def test_fold_candidate_eval_matches_jax():
     base = dict(iter_max=20, adaptive_eps_init=True, eps_history_cap=0)
     cfg = dict(base, fold_candidate_eval=True)
     jres = run_jax(juni(N=12), cfg, x0, u0, thetas)
-    tprob = tuni(N=12, analytic_jacobians=True)
+    tprob = tuni(N=12, device="cpu", analytic_jacobians=True)
     tres = run_port(tprob, cfg, x0, u0, thetas)
     assert bool(jres.failed[3]) and not np.any(np.asarray(jres.failed[:3]))
     assert_banks_match(tres, jres, hist=False)
@@ -70,7 +70,7 @@ def test_chunk_beyond_trial_budget(trials):
     recorded."""
     x0, u0, thetas = np.zeros(3), np.zeros((20, 2)), np.array([0.0])
     cfg = dict(iter_max=10, ls_max_trials=trials)
-    tprob = tuni(N=20, analytic_jacobians=True)
+    tprob = tuni(N=20, device="cpu", analytic_jacobians=True)
     tres = run_port(tprob, dict(cfg, ls_chunk=8), x0, u0, thetas)
     assert_banks_match(tres, run_jax(juni(N=20), dict(cfg, ls_chunk=8), x0,
                                      u0, thetas))

@@ -21,11 +21,11 @@ from test_torch_ileqg_options import (assert_same_trials,  # noqa: E402
                                       run_jax, run_port)
 
 MODELS = {   # name: (JAX problem, port problem, x0, u0)
-    "toy": (lambda: jtoy(N=10), lambda: ttoy(N=10), np.zeros(2),
+    "toy": (lambda: jtoy(N=10), lambda: ttoy(N=10, device="cpu"), np.zeros(2),
             0.1 * np.ones((10, 2))),
     "unicycle": (lambda: juni(N=20),
-                 lambda: tuni(N=20, analytic_jacobians=True), np.zeros(3),
-                 np.zeros((20, 2))),
+                 lambda: tuni(N=20, device="cpu", analytic_jacobians=True),
+                 np.zeros(3), np.zeros((20, 2))),
 }
 THETAS = np.array([0.0, 0.01])
 

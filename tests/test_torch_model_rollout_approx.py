@@ -40,7 +40,7 @@ MODELS = {
 def _problems(key):
     kw, n, m, maker = MODELS[key]
     return (getattr(jm, maker)(N=T, dtype=jnp.float64, **kw),
-            getattr(tm, maker)(N=T, dtype=F64, **kw), n, m)
+            getattr(tm, maker)(N=T, dtype=F64, device="cpu", **kw), n, m)
 
 
 def _inputs(key, n, m, seed=0):
@@ -143,8 +143,8 @@ def _negative_curvature_problem():
 @pytest.mark.parametrize("which", ["unicycle", "lqr", "negative_curvature"])
 def test_tile_model_equals_torch_ad(which):
     from torch.func import grad, hessian, jacfwd
-    prob = {"unicycle": lambda: tm.unicycle(N=T, dtype=F64),
-            "lqr": lambda: tm.lqr_problem(N=T, dtype=F64),
+    prob = {"unicycle": lambda: tm.unicycle(N=T, dtype=F64, device="cpu"),
+            "lqr": lambda: tm.lqr_problem(N=T, dtype=F64, device="cpu"),
             "negative_curvature": _negative_curvature_problem}[which]()
     tile = prob.tile_model
     rng = np.random.default_rng(3)

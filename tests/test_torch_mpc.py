@@ -34,7 +34,7 @@ def injected_sampler(monkeypatch):
 
 
 def test_rat_ilqr_mpc_matches_jax(injected_sampler):
-    jprob, tprob = jlqr(N=T, noise=0.01), tlqr(N=T, noise=0.01)
+    jprob, tprob = jlqr(N=T, noise=0.01), tlqr(N=T, noise=0.01, device="cpu")
     jcfg = J.CrossEntropyConfig(num_samples=4, num_elite=2, iter_max=2,
                                 mu_init=0.1, sigma_init=0.05,
                                 ileqg=J.ILEQGConfig(iter_max=20))
@@ -78,7 +78,7 @@ def test_affine_policy_feedback_correction():
 
 
 def test_gaussian_simulator_is_seeded():
-    prob = tlqr(N=T, noise=0.01)
+    prob = tlqr(N=T, noise=0.01, device="cpu")
     sim = make_gaussian_simulator(prob)
     x, u = torch.tensor([1.0, -1.0], dtype=torch.float64), torch.zeros(
         2, dtype=torch.float64)

@@ -34,7 +34,7 @@ from ratilqr_tpu_torch.solvers import ratilqr_jit as tjit  # noqa: E402
 _Z = np.linspace(-1.1, 1.3, 7)   # deterministic stand-in for N(0,1) draws
 KL = 1.0
 JPROB = jtoy(N=10)
-TPROB = ttoy(N=10)
+TPROB = ttoy(N=10, device="cpu")
 X0, U0 = np.zeros(2), 0.1 * np.ones((10, 2))
 INNER = dict(iter_max=20)
 

@@ -103,7 +103,7 @@ def test_fold_identity(loop):
     """Folded value == unfolded evaluating pass (dl = 0) on the same
     rollout: closed loop around x̄ with gains L, or open loop with L = 0."""
     f64 = torch.float64
-    prob = tuni(N=T, dtype=f64)
+    prob = tuni(N=T, dtype=f64, device="cpu")
     noise = noise_model(prob, T, f64, "cpu")
     _, args = _jax_folded(jnp.float64)
     x_ref, l, L, mu = (torch.tensor(np.array(a)) for a in args)

@@ -2,8 +2,9 @@
 package's (``ratilqr_tpu.ops.smallmat``), in float64.
 
 Same formulas in the same operation order, so agreement is to a few ulps:
-rtol 1e-12.  ``chol_ok`` must agree exactly, including on indefinite
-inputs and on a PSD matrix that is singular in its last pivot.
+rtol 1e-12, up to the quadrotor's n = 12.  ``chol_ok`` must agree exactly,
+including on indefinite inputs and on a PSD matrix that is singular in its
+last pivot.
 """
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ def _both(fn_name, *arrays):
     return np.asarray(j), t.numpy()
 
 
-@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("n", [2, 3, 4, 12])
 def test_factor_and_solves_match_jax(n):
     rng = np.random.default_rng(n)
     M = _spd(rng, (5,), n)
@@ -55,7 +56,7 @@ def test_factor_and_solves_match_jax(n):
                                rtol=1e-10, atol=1e-10)
 
 
-@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("n", [2, 3, 4, 12])
 def test_products_match_jax(n):
     rng = np.random.default_rng(10 + n)
     A = rng.standard_normal((4, n, n + 1))
@@ -68,7 +69,7 @@ def test_products_match_jax(n):
         np.testing.assert_allclose(t, j, **RTOL, err_msg=name)
 
 
-@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("n", [2, 3, 4, 12])
 def test_chol_ok_and_nan_on_failure_match_jax(n):
     rng = np.random.default_rng(20 + n)
     spd = _spd(rng, (), n)

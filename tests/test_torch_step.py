@@ -37,7 +37,7 @@ MUS = np.array([0.0, 0.0, 1e-3, 0.0, 1e-2], np.float32)
 def test_plain_step_matches_pallas_kernel_interpret(maker, n, m):
     f32 = torch.float32
     jp = getattr(jm, maker)(N=T, dtype=jnp.float32)
-    tp = getattr(tm, maker)(N=T, dtype=f32)
+    tp = getattr(tm, maker)(N=T, dtype=f32, device="cpu")
     rng = np.random.default_rng(0)
     x0s = (0.1 * rng.standard_normal((B, n))).astype(np.float32)
     ls = (0.1 * rng.standard_normal((B, T, m))).astype(np.float32)
