@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the iLEQG solver bank on the unicycle and the
-n=12 quadrotor, RAT iLQR and the MPC driver) on one CUDA card.
+"""Drive the PyTorch port (the iLEQG solver bank on the unicycle, the
+cartpole, the n=12 quadrotor and a problem with no tile model, RAT iLQR and
+the MPC driver) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
@@ -8,11 +9,14 @@ Phases (each prints a line and raises on failure):
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
-     and stack frame;
+     and stack frame; then builds kernel A at (6, 3) and kernel D at n=6,
+     shapes outside the shipped library, float32 and float64, and prints
+     each unit's build time and ptxas report;
   3. every kernel against its plain PyTorch version on the card, float32
-     and float64, at the unicycle T=100, the LQR T=7 and the quadrotor
-     T=50 with B=5 and B=4,099 (kernel D with a shared and a per-lane
-     noise model), and the θ = 1e6 lanes latching m_fail;
+     and float64, at the unicycle T=100, the LQR T=7, the quadrotor T=50
+     and the cartpole T=50 with B=5 and B=4,099 (kernel D with a shared
+     and a per-lane noise model), kernels A and D on the random linear
+     problem at (6, 3), T=20, and the θ = 1e6 lanes latching m_fail;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -25,8 +29,18 @@ Phases (each prints a line and raises on failure):
      B=262,144; (c) RAT iLQR's inner configuration (B + D), warm at
      B=16,384 — with the launch counts read around each run, and 64 lanes
      of (b) in float64 on the card and on the CPU through the plain path;
+     then the cartpole (n=4, m=1, T=50, f32), cold from x0 = (0.3, 0, 0.4,
+     0): (a), (b) and (c) at B=16,384 and (b) at B=262,144 with 0 failed
+     lanes; the JAX bench cell's x0 = 0 (every θ > 0 lane fails at
+     iteration 0), its failure pattern on 64 lanes held against the CPU;
+     and 64 lanes of (b) in float64 on the card and on the CPU;
+  6b. any problem: the random linear problem at (6, 3) with no tile model,
+     T=20, B=4,099, in the default configuration (kernel A), with the fused
+     flags (their composition: kernels A and D) and with the folded
+     candidate evaluation (A and D), 64 lanes of each against the CPU in
+     float64, and one bank from numpy inputs on a problem on the card;
   7. the RAT iLQR path: ``MPCDriver`` re-planning the unicycle (T=100,
-     f32) four times through ``RATiLQRSolver`` and through the single-call
+     f32) three times through ``RATiLQRSolver`` and through the single-call
      ``ratilqr_jit.solve``, on the folded candidate evaluation (kernel D)
      and the fused step (kernel B), with the launch counts read around
      each path;
@@ -34,11 +48,12 @@ Phases (each prints a line and raises on failure):
      (device idle share), and 64 of its θ again in float64 on the card and
      on the CPU through the plain path;
   9. timings: each kernel's wrapper, its launch alone and its plain
-     version, beside its bound, on the unicycle and the quadrotor; warm
-     solves/s.
+     version, beside its bound, on the unicycle (B=262,144), the
+     quadrotor (B=16,384) and the cartpole (both); warm solves/s.
 The line before the card's name is the JSON kernel record; the last line
 is the JSON device record.
 """
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -50,7 +65,7 @@ import torch
 from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
                                RATiLQRSolver, kernel_check,
                                make_batched_solver)
-from ratilqr_tpu_torch.models import quadrotor, unicycle
+from ratilqr_tpu_torch.models import cartpole, quadrotor, unicycle
 from ratilqr_tpu_torch.ops import _build
 from ratilqr_tpu_torch.solvers import ratilqr, ratilqr_jit
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
@@ -76,7 +91,7 @@ QUAD_BASE = dict(eps_history_cap=0, adaptive_eps_init=True,
 RAT_INNER = ILEQGConfig(iter_max=30, adaptive_eps_init=True,
                         eps_history_cap=0, fused_step_optimize=True,
                         fold_candidate_eval=True, ls_chunk=4)
-QUAD_CONFIGS = {   # name: (config, the kernels its path must run)
+MODEL_CONFIGS = {   # name: (config, the kernels its path must run)
     "a": (ILEQGConfig(**QUAD_BASE), ("riccati", "candidate")),
     "b": (ILEQGConfig(**QUAD_BASE, fused_step_optimize=True),
           ("step", "candidate")),
@@ -86,7 +101,7 @@ RAT_CONFIG = CrossEntropyConfig(
     num_samples=10, num_elite=3, iter_max=5, mu_init=0.005, sigma_init=0.01,
     ileqg=RAT_INNER)
 KL_BOUND = 0.05
-N_REPLANS = 4
+N_REPLANS = 3   # kept small: the cold re-plan alone takes 20-30 s
 B_CE = 16_384   # one CE generation at the bank size of the bank's path
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "riccati": ("ratilqr_tpu_torch/csrc/riccati.cu",
@@ -99,11 +114,31 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                        "ratilqr_tpu/ops/riccati_pallas.py:581"),
 }
 SHAPES = {   # the (n, m) each kernel runs on the paths of this script
-    "riccati": "(3,2) (2,2) (12,4)", "step": "unicycle, LQR, quadrotor",
-    "candidate": "unicycle, LQR, quadrotor", "riccati_folded": "n=3 2 12"}
+    "riccati": "(3,2) (2,2) (4,1) (12,4) shipped; (6,3) built at first use",
+    "step": "unicycle, LQR, cartpole, quadrotor",
+    "candidate": "unicycle, LQR, cartpole, quadrotor",
+    "riccati_folded": "n=3 2 4 12 shipped; n=6 built at first use"}
 BANK_KERNELS = ("riccati", "step", "candidate")   # phase 4's path
 RAT_KERNELS = ("step", "riccati_folded")           # phase 7's path
-MODEL_DIMS = {"unicycle": (3, 2), "quadrotor": (12, 4)}
+MODEL_DIMS = {"unicycle": (3, 2), "quadrotor": (12, 4), "cartpole": (4, 1)}
+# The cartpole cells (PERF.md §4): cold from a start that does real work;
+# JAX's own bench cell (benchmarks/run_all.py:283-301) starts at the
+# fixed point x0 = 0, where every θ > 0 lane fails at iteration 0.
+CART_T = 50
+CART_X0 = (0.3, 0.0, 0.4, 0.0)
+CART_THETA_MAX = 0.05
+# Any problem: kernels A and D at a shape outside the shipped library.
+LINEAR = "linear6x3"
+LINEAR_T = 20
+B_LINEAR = 4_099
+LINEAR_CONFIGS = {   # name: (config, the kernels its path must run)
+    "default": (ILEQGConfig(), ("riccati",)),
+    "fused flags": (ILEQGConfig(fused_step_optimize=True,
+                                fused_candidate_eval=True),
+                    ("riccati", "riccati_folded")),
+    "fold": (ILEQGConfig(fold_candidate_eval=True),
+             ("riccati", "riccati_folded")),
+}
 
 
 def card() -> str:
@@ -124,7 +159,8 @@ def sync_time(fn):
 
 def build():
     """Phase 2: build the kernels; prints each source's nvcc time and each
-    kernel's ptxas report."""
+    kernel's ptxas report, then the same for kernels A at (6, 3) and D at
+    n=6, built for those shapes alone."""
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -132,12 +168,27 @@ def build():
           f"({lib_path.parent.name})", flush=True)
     for line in _build.report(lib_path):
         print("  " + line, flush=True)
+    units = [(kernel, shape, suffix)
+             for kernel, shape in (("riccati", (6, 3)),
+                                   ("riccati_folded", (6,)))
+             for suffix in ("f32", "f64")]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        libs = list(pool.map(lambda u: _build.build_shape(*u), units))
+    for unit in units:
+        _build.shape_library(*unit)
+    print(f"build at first use: {time.perf_counter() - t0:.1f} s for A at "
+          "(6, 3) and D at n=6, f32 and f64, in parallel", flush=True)
+    for lib in {lib.parent: lib for lib in libs}.values():   # one log each
+        for line in _build.report(lib):
+            print("  " + line, flush=True)
 
 
 def check_kernels(device):
     """Phase 3: returns the largest float32 difference per kernel."""
     err32 = {}
-    cases = [("unicycle", T), ("lqr", 7), ("quadrotor", QUAD_T)]
+    cases = [("unicycle", T), ("lqr", 7), ("quadrotor", QUAD_T),
+             ("cartpole", CART_T)]
     for dtype in (torch.float32, torch.float64):
         worst = {name: (0.0, 0.0) for name in KERNELS}
 
@@ -145,21 +196,24 @@ def check_kernels(device):
             worst[name] = tuple(map(max, worst[name], result))
 
         for B in (5, 4_099):
-            for model, horizon in cases:
+            for model, horizon in cases + [(LINEAR, LINEAR_T)]:
                 for variant in kernel_check.RICCATI_VARIANTS:
                     keep("riccati", kernel_check.check_riccati(
                         model, horizon, B, dtype, device, **variant))
-                keep("candidate", kernel_check.check_candidate(
-                    model, horizon, B, dtype, device))
                 for shared_w in (True, False):
                     keep("riccati_folded", kernel_check.check_riccati_folded(
                         model, horizon, B, dtype, device, shared_w))
+                kernel_check.clear_caches()
+            for model, horizon in cases:
+                keep("candidate", kernel_check.check_candidate(
+                    model, horizon, B, dtype, device))
             for model, horizon in cases + [("negative_curvature", 7)]:
                 keep("step", kernel_check.check_step(model, horizon, B, dtype,
                                                      device))
         f32 = dtype == torch.float32
-        print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7 and "
-              f"quadrotor T={QUAD_T}, B=5 and B=4099, "
+        print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7, "
+              f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D) and "
+              f"{LINEAR} T={LINEAR_T} (A, D), B=5 and B=4099, "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
               "max |kernel - plain|"
               + (" (plain's own error vs float64)" if f32 else "") + ": "
@@ -167,8 +221,8 @@ def check_kernels(device):
                           for k, (e, p) in worst.items()), flush=True)
         if f32:
             err32 = {k: e for k, (e, _) in worst.items()}
-    kernel_check.clear_caches()
-    for model, horizon in (("unicycle", T), ("quadrotor", QUAD_T)):
+    for model, horizon in (("unicycle", T), ("quadrotor", QUAD_T),
+                           ("cartpole", CART_T)):
         m_fail, _ = kernel_check.expect_fail_pattern(model, horizon, 4_099,
                                                      torch.float32, device)
         expect = int(np.sum(np.resize(kernel_check.THETA_MIX, 4_099) == 1e6))
@@ -256,6 +310,34 @@ def quad_thetas(B, dtype=torch.float32, device=None):
                           device=device)
 
 
+def expect_path(name, launched, path):
+    """Fail unless exactly the kernels of ``path`` were launched."""
+    for kernel in KERNELS:
+        ran = launched.get(kernel, 0)
+        assert (ran > 0) == (kernel in path), (
+            f"{name}: launches {launched}, expected exactly {path}")
+
+
+def run_bank(name, prob, key, device, x0, u_init, thetas, counts):
+    """One bank solve of configuration ``key`` of ``MODEL_CONFIGS``, with
+    the launch counts read around it, checked against the configuration's
+    path and added to ``counts[key]``; 0 failed lanes."""
+    config, path = MODEL_CONFIGS[key]
+    bank = make_batched_solver(prob, config, device=device)
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    res, secs = sync_time(lambda: bank(x0, u_init, thetas))
+    launched = dict(_build.launch_counts)
+    B, horizon, m = res.l.shape
+    check_result(name, res, B, horizon, m, secs)
+    expect_path(f"{name} B={B}", launched, path)
+    print(f"{name} B={B} launch counts: {launched}", flush=True)
+    for kernel, n in launched.items():
+        counts.setdefault(key, {})
+        counts[key][kernel] = counts[key].get(kernel, 0) + n
+    return res
+
+
 def quadrotor_path(device):
     """Phase 6: the model-size bank path on the quadrotor; returns the
     launch counts per configuration."""
@@ -266,25 +348,8 @@ def quadrotor_path(device):
     counts, u_warm = {}, {}
 
     def run(key, label, B, u_init):
-        config, path = QUAD_CONFIGS[key]
-        bank = make_batched_solver(prob, config, device=device)
-        torch.cuda.empty_cache()
-        _build.reset_launch_counts()
-        res, secs = sync_time(lambda: bank(x0, u_init, quad_thetas(B)))
-        launched = dict(_build.launch_counts)
-        check_result(f"quadrotor ({key}) {label} solve", res, B, QUAD_T, 4,
-                     secs)
-        for kernel in KERNELS:
-            ran = launched.get(kernel, 0)
-            assert (ran > 0) == (kernel in path), (
-                f"quadrotor ({key}) {label} B={B}: launches {launched}, "
-                f"expected exactly {path}")
-        print(f"quadrotor ({key}) {label} B={B} launch counts: {launched}",
-              flush=True)
-        for kernel, n in launched.items():
-            counts.setdefault(key, {})
-            counts[key][kernel] = counts[key].get(kernel, 0) + n
-        return res
+        return run_bank(f"quadrotor ({key}) {label} solve", prob, key, device,
+                        x0, u_init, quad_thetas(B), counts)
 
     for key in ("a", "b"):
         cold = run(key, "cold", B_MAIN, u0)
@@ -303,7 +368,7 @@ def quadrotor_cpu_parity(device):
     f64 = torch.float64
     idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
     thetas = quad_thetas(B_MAIN, f64)[idx]
-    config = QUAD_CONFIGS["b"][0]
+    config = MODEL_CONFIGS["b"][0]
     out = []
     for dev in (device, torch.device("cpu")):
         bank = make_batched_solver(quadrotor(N=QUAD_T, dtype=f64, device=dev),
@@ -325,6 +390,124 @@ def quadrotor_cpu_parity(device):
           f"on the CPU: failed and iterations ({int(it.min())}.."
           f"{int(it.max())}) equal, value max rel diff {rel:.3e}",
           flush=True)
+
+
+def cart_thetas(B, dtype=torch.float32, device=None):
+    return torch.linspace(0.0, CART_THETA_MAX, B, dtype=dtype, device=device)
+
+
+def cartpole_path(device):
+    """Phase 6, the cartpole: the working cell cold in (a), (b) and (c) at
+    B=16,384 and (b) at B=262,144; returns the launch counts per
+    configuration."""
+    f32 = torch.float32
+    prob = cartpole(N=CART_T, dtype=f32, device=device)
+    x0 = torch.tensor(CART_X0, dtype=f32, device=device)
+    u0 = torch.zeros((CART_T, 1), dtype=f32, device=device)
+    counts = {}
+    for key, B in (("a", B_MAIN), ("b", B_MAIN), ("c", B_MAIN),
+                   ("b", B_WIDE)):
+        run_bank(f"cartpole ({key}) cold solve", prob, key, device, x0, u0,
+                 cart_thetas(B, device=device), counts)
+    print(f"cartpole path launch counts: {counts}", flush=True)
+    return counts
+
+
+def cartpole_cpu_parity(device):
+    """Phase 6, the cartpole against the CPU's plain path: JAX's bench cell
+    (x0 = 0, configuration (a), cold and warm at B=16,384; its failure
+    pattern on 64 lanes), then 64 lanes of the working cell (b) in
+    float64."""
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
+    thetas = cart_thetas(B_MAIN, f32, device)
+    zero_x, zero_u = torch.zeros(4, dtype=f32), torch.zeros((CART_T, 1))
+    config = MODEL_CONFIGS["a"][0]
+    bank = make_batched_solver(cartpole(N=CART_T, dtype=f32, device=device),
+                               config)
+    cold = bank(zero_x, zero_u, thetas)
+    warm = bank(zero_x, cold.l[0], thetas)
+    positive = thetas > 0
+    for label, res in (("cold", cold), ("warm", warm)):
+        n_failed = int(res.failed.sum())
+        at_zero = bool((res.iterations[res.failed] == 0).all())
+        print(f"cartpole JAX bench cell (x0 = 0, (a)) {label} B={B_MAIN}: "
+              f"{n_failed} failed lanes of {int(positive.sum())} with θ > 0"
+              f", all at iteration 0: {at_zero}", flush=True)
+    plain = make_batched_solver(cartpole(N=CART_T, dtype=f32, device=cpu),
+                                config)(zero_x, zero_u, thetas[idx].cpu())
+    for k in ("failed", "iterations"):
+        got = getattr(cold, k)[idx.to(device)].cpu()
+        assert torch.equal(got, getattr(plain, k)), (
+            f"x0 = 0 {k} differ: cpu {getattr(plain, k).tolist()} gpu "
+            f"{got.tolist()}")
+    print(f"cartpole x0 = 0: 64 lanes' failed ({int(plain.failed.sum())}) "
+          "and iterations equal to the CPU plain path's", flush=True)
+
+    config = MODEL_CONFIGS["b"][0]
+    out = []
+    for dev in (device, cpu):
+        bank = make_batched_solver(cartpole(N=CART_T, dtype=f64, device=dev),
+                                   config)
+        out.append(bank(torch.tensor(CART_X0, dtype=f64),
+                        torch.zeros((CART_T, 1), dtype=f64),
+                        cart_thetas(B_MAIN, f64)[idx]))
+    gpu = {k: getattr(out[0], k).cpu() for k in ("failed", "iterations",
+                                                  "value")}
+    cpu_res = out[1]
+    assert not bool(cpu_res.failed.any()), "float64 cartpole lanes failed"
+    assert torch.equal(cpu_res.failed, gpu["failed"]), "failed lanes differ"
+    assert torch.equal(cpu_res.iterations, gpu["iterations"]), (
+        f"iterations differ: cpu {cpu_res.iterations.tolist()} "
+        f"gpu {gpu['iterations'].tolist()}")
+    torch.testing.assert_close(gpu["value"], cpu_res.value, rtol=1e-9, atol=0)
+    rel = float(((gpu["value"] - cpu_res.value) / cpu_res.value).abs().max())
+    it = cpu_res.iterations
+    print(f"64 cartpole θ of (b) in float64 on the card vs the plain path on "
+          f"the CPU: failed and iterations ({int(it.min())}..{int(it.max())})"
+          f" equal, value max rel diff {rel:.3e}", flush=True)
+
+
+def linear_path(device):
+    """Phase 6b: the random linear problem at (6, 3), no tile model, on the
+    card in each configuration of ``LINEAR_CONFIGS``, 64 lanes against the
+    CPU's plain path in float64; then one bank from numpy inputs.  Returns
+    the launch counts per configuration."""
+    f64, cpu = torch.float64, torch.device("cpu")
+    n, m = kernel_check.linear_dims(LINEAR)
+    x0 = np.random.default_rng(0).uniform(-1.0, 1.0, n)
+    u0 = np.zeros((LINEAR_T, m))
+    thetas = np.linspace(0.0, 0.05, B_LINEAR)
+    idx = np.linspace(0, B_LINEAR - 1, 64).round().astype(int)
+    prob = {dev: kernel_check.make_problem(LINEAR, LINEAR_T, f64, dev)
+            for dev in (device, cpu)}
+    counts = {}
+    for name, (config, path) in LINEAR_CONFIGS.items():
+        _build.reset_launch_counts()
+        res, secs = sync_time(lambda: make_batched_solver(prob[device], config)(
+            torch.tensor(x0), torch.tensor(u0), torch.tensor(thetas)))
+        counts[name] = dict(_build.launch_counts)
+        check_result(f"{LINEAR} ({name}) f64 solve", res, B_LINEAR, LINEAR_T,
+                     m, secs)
+        expect_path(f"{LINEAR} ({name})", counts[name], path)
+        plain = make_batched_solver(prob[cpu], config)(x0, u0, thetas[idx])
+        for k in ("failed", "iterations"):
+            assert torch.equal(getattr(res, k)[idx].cpu(), getattr(plain, k))
+        torch.testing.assert_close(res.value[idx].cpu(), plain.value,
+                                   rtol=1e-9, atol=0)
+        rel = float(((res.value[idx].cpu() - plain.value)
+                     / plain.value).abs().max())
+        print(f"{LINEAR} ({name}): launch counts {counts[name]}; 64 lanes "
+              f"equal to the CPU plain path's, value max rel diff {rel:.3e}",
+              flush=True)
+    _build.reset_launch_counts()
+    res = make_batched_solver(prob[device], ILEQGConfig())(x0, u0, thetas)
+    launched = dict(_build.launch_counts)
+    assert res.value.device.type == "cuda" and res.l.device.type == "cuda"
+    assert launched.get("riccati", 0) > 0, launched
+    print(f"{LINEAR} from numpy inputs on a problem on the card: result on "
+          f"{res.value.device}, launch counts {launched}", flush=True)
+    return counts
 
 
 def rat_problem(device, dtype=torch.float32):
@@ -413,15 +596,14 @@ def ce_generation(device, name_power):
     n_failed = int(res.failed.sum())
     assert n_failed == 0, f"CE generation: {n_failed} failed lanes"
     assert bool(torch.isfinite(costs).all())
-    runs = sorted(sync_time(lambda: cost_fn(x0, u0, thetas, KL_BOUND))[1]
-                  for _ in range(3))
+    again = sync_time(lambda: cost_fn(x0, u0, thetas, KL_BOUND))[1]
     _, wall, busy = device_busy(lambda: cost_fn(x0, u0, thetas, KL_BOUND))
     assert busy > 0, "the profiled CE generation ran nothing on the card"
     print(f"CE generation B={B_CE} (unicycle T={T}, f32): 0 failed, costs "
           f"{float(costs.min()):.6f}..{float(costs.max()):.6f}, iterations "
           f"{int(res.iterations.min())}..{int(res.iterations.max())}; "
-          f"first run {secs:.3f} s, then {runs[1]:.3f} s (median of 3, host "
-          f"clock); profiled run {wall:.3f} s wall, device busy "
+          f"first run {secs:.3f} s, then {again:.3f} s (host clock); "
+          f"profiled run {wall:.3f} s wall, device busy "
           f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.4f} "
           f"({name_power})", flush=True)
 
@@ -454,9 +636,14 @@ def timings(device, name_power):
     wrapper, launch-alone and plain times and its bound."""
     f32 = torch.float32
     result = {}
-    for model, horizon in (("unicycle", T), ("quadrotor", QUAD_T)):
+    # The kernel record's widths, and both for the cartpole; the unicycle
+    # at B=16,384 and the quadrotor at 262,144 are left out to keep the run
+    # short (PERF.md keeps their last numbers).
+    for model, horizon, widths in (("unicycle", T, (B_WIDE,)),
+                                   ("quadrotor", QUAD_T, (B_MAIN,)),
+                                   ("cartpole", CART_T, (B_MAIN, B_WIDE))):
         n, m = MODEL_DIMS[model]
-        for B in (B_MAIN, B_WIDE):
+        for B in widths:
             times = kernel_check.kernel_timings(model, horizon, B, f32,
                                                 device)
             for kernel, (ms, launch_ms, plain_ms) in times.items():
@@ -470,7 +657,8 @@ def timings(device, name_power):
                 print(f"time {kernel} {model} T={horizon} B={B} f32: wrapper "
                       f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, plain "
                       f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
-                      f"CUDA events; {name_power})", flush=True)
+                      f"the plain version of 3, CUDA events; {name_power})",
+                      flush=True)
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -488,14 +676,16 @@ def timings(device, name_power):
     return result
 
 
-def kernel_record(err32, quad_counts, earlier_counts, times):
-    """The JSON kernel record: this slice's path (the quadrotor, T=50,
-    B=16,384, f32) at the top level, the unicycle path at B=262,144 under
+def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
+    """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
+    the top level, the cartpole path (T=50, B=16,384, f32) under
+    ``"cartpole"`` and the unicycle path at B=262,144 under
     ``"unicycle"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():
         quad = times[("quadrotor", B_MAIN)][name]
         uni = times[("unicycle", B_WIDE)][name]
+        cart = times[("cartpole", B_MAIN)][name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "shapes": SHAPES[name],
@@ -510,7 +700,13 @@ def kernel_record(err32, quad_counts, earlier_counts, times):
             "bound_by": quad["bound_by"], "library_ms": None,
             "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_MAIN} f32",
             "unicycle": {**uni, "library_ms": None,
-                         "at": f"unicycle n=3 m=2 T={T} B={B_WIDE} f32"}})
+                         "at": f"unicycle n=3 m=2 T={T} B={B_WIDE} f32"},
+            "cartpole": {
+                **cart, "library_ms": None,
+                "launches": sum(c.get(name, 0) for c in cart_counts.values()),
+                "launches_by_path": {f"cartpole_{k}": c.get(name, 0)
+                                     for k, c in cart_counts.items()},
+                "at": f"cartpole n=4 m=1 T={CART_T} B={B_MAIN} f32"}})
     return {"kernels": rows}
 
 
@@ -542,6 +738,9 @@ def main() -> int:
     del cold
     quad_counts = phase("quadrotor bank", quadrotor_path, device)
     phase("quadrotor f64 CPU parity", quadrotor_cpu_parity, device)
+    cart_counts = phase("cartpole bank", cartpole_path, device)
+    phase("cartpole CPU parity", cartpole_cpu_parity, device)
+    linear_counts = phase("any problem", linear_path, device)
     rat_counts = phase("RAT iLQR MPC", rat_mpc, device)
     phase("CE generation", ce_generation, device, name_power)
     times = phase("timings", timings, device, name_power)
@@ -549,8 +748,9 @@ def main() -> int:
           f"device check ({name_power})", flush=True)
 
     print(json.dumps(kernel_record(
-        err32, quad_counts,
-        {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts}, times)),
+        err32, quad_counts, cart_counts,
+        {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts,
+         **{f"{LINEAR}_{k}": c for k, c in linear_counts.items()}}, times)),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ JAX.
 
 from ratilqr_tpu_torch.config import CrossEntropyConfig, ILEQGConfig
 from ratilqr_tpu_torch.mpc import MPCDriver
-from ratilqr_tpu_torch.problems import RiskSensitiveProblem
+from ratilqr_tpu_torch.ops import integrate_cost, rollout_open_loop
+from ratilqr_tpu_torch.problems import RiskSensitiveProblem, problem_device
 from ratilqr_tpu_torch.solvers.ileqg import (ILEQGResult, make_batched_solver,
                                              solve, solve_bank,
                                              solve_via_bank)

@@ -36,6 +36,11 @@
 // is 0.21 GB (0.06 ms) against 1.79e10 operations (0.27 ms), bound by the
 // FP32 rate, with the 12x12 working set spilled out of registers as in
 // step.cu.
+//
+// At n=4, m=1 (the cartpole) a step reads x̄, l and L (9 words) and the
+// state it stored, against ~950 operations of fold and folded DP: at
+// B = 16,384 and T = 50, 0.030 GB (0.009 ms) against 7.8e8 operations
+// (0.012 ms), bound by the FP32 rate.
 #include <cstdint>
 
 #include "dp_step.cuh"
@@ -159,6 +164,8 @@ int dispatch(int model, const CandidateArgs& a, cudaStream_t stream) {
     candidate_kernel<T, rq::Lqr><<<blocks, threads, 0, stream>>>(a);
   else if (model == rq::kQuadrotor)
     candidate_kernel<T, rq::Quadrotor><<<blocks, threads, 0, stream>>>(a);
+  else if (model == rq::kCartpole)
+    candidate_kernel<T, rq::Cartpole><<<blocks, threads, 0, stream>>>(a);
   else
     return -1;
   return cudaGetLastError();

@@ -28,6 +28,10 @@
 // ~16,200 operations: at B = 16,384 and T = 50, 1.0 GB (0.30 ms) against
 // 1.33e10 operations (0.20 ms), bound by bytes on paper, with the 12x12
 // carry and factors spilled out of the 255 registers of a thread.
+//
+// At n=4 (the cartpole) a step streams 37 words against ~750 operations: at
+// B = 16,384 and T = 50, 0.12 GB (0.037 ms) against 6.1e8 operations
+// (0.009 ms), bound by bytes.
 #include <cstdint>
 
 #include "dp_step.cuh"
@@ -89,16 +93,25 @@ __global__ void __launch_bounds__(128) riccati_folded_kernel(const FoldedArgs a)
   a.m_fail[b] = m_fail;
 }
 
+// As in riccati.cu: the shipped models' n here, any other n built at its
+// first use from this file with -DRQ_SHAPE_N=n, holding that n alone.
 template <typename T>
 int dispatch(int n, const FoldedArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.B + threads - 1) / threads;
+#if defined(RQ_SHAPE_N)
+  if (n == RQ_SHAPE_N)
+    riccati_folded_kernel<T, RQ_SHAPE_N><<<blocks, threads, 0, stream>>>(a);
+#else
   if (n == 3)
     riccati_folded_kernel<T, 3><<<blocks, threads, 0, stream>>>(a);
   else if (n == 2)
     riccati_folded_kernel<T, 2><<<blocks, threads, 0, stream>>>(a);
+  else if (n == 4)
+    riccati_folded_kernel<T, 4><<<blocks, threads, 0, stream>>>(a);
   else if (n == 12)
     riccati_folded_kernel<T, 12><<<blocks, threads, 0, stream>>>(a);
+#endif
   else
     return -1;
   return cudaGetLastError();

@@ -2,8 +2,8 @@
 // derivatives for the fused step and candidate kernels.
 //
 // Device counterparts of ratilqr_tpu/ops/tile_model.py
-// (unicycle_tile_model :68, quadrotor_tile_model :199, lqr_tile_model
-// :285) and of the plain-torch mirrors in
+// (unicycle_tile_model :68, cartpole_tile_model :121, quadrotor_tile_model
+// :199, lqr_tile_model :285) and of the plain-torch mirrors in
 // ratilqr_tpu_torch/ops/tile_model.py, formula for formula.  A model holds
 // its scalar parameters; the kernel is templated on it.
 #pragma once
@@ -15,7 +15,7 @@
 namespace rq {
 
 // Model ids, shared with ratilqr_tpu_torch/ops/tile_model.py.
-enum ModelId { kUnicycle = 0, kLqr = 1, kQuadrotor = 2 };
+enum ModelId { kUnicycle = 0, kLqr = 1, kQuadrotor = 2, kCartpole = 3 };
 
 // Parameter slots a kernel takes (tile_model.MAX_PARAMS); unused slots are 0.
 constexpr int kMaxParams = 8;
@@ -130,6 +130,96 @@ struct Lqr {
       qv[i] = wh * x[i];
 #pragma unroll (rq::Unroll<N>::value)
       for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? wh : T(0);
+    }
+  }
+};
+
+// Cart-pole with φ measured from upright (n=4, m=1): state (x, ẋ, φ, φ̇),
+// control the horizontal force; parameters (dt, mc, mp, lp, grav).  The
+// Jacobians expand phi_acc = N(φ)/D(φ) by the quotient rule, as the Pallas
+// tile model does.  The 1x1 control blocks make H + μI's factor a square
+// root and P a 1x4 row.
+template <typename T>
+struct Cartpole {
+  static constexpr int N = 4;
+  static constexpr int M = 1;
+  T dt, mp, lp, grav, Mt, k1;
+
+  __device__ explicit Cartpole(const Params& p)
+      : dt(T(p[0])), mp(T(p[2])), lp(T(p[3])), grav(T(p[4])), Mt(T(p[1] + p[2])),
+        k1(T(p[2] * p[3] / (p[1] + p[2]))) {}
+
+  // temp, D, N and phi_acc of the dynamics at (x, u).
+  __device__ void accel(const T (&x)[N], const T (&u)[M], T s, T c, T& temp, T& D, T& Nn,
+                        T& phi_acc) const {
+    const T om = x[3];
+    temp = (u[0] + mp * lp * om * om * s) / Mt;
+    D = lp * (T(4.0 / 3.0) - mp * c * c / Mt);
+    Nn = grav * s - c * temp;
+    phi_acc = Nn / D;
+  }
+
+  __device__ void f(const T (&x)[N], const T (&u)[M], T (&xn)[N]) const {
+    const T s = sin(x[2]), c = cos(x[2]);
+    T temp, D, Nn, phi_acc;
+    accel(x, u, s, c, temp, D, Nn, phi_acc);
+    const T acc = temp - k1 * phi_acc * c;
+    xn[0] = x[0] + dt * x[1];
+    xn[1] = x[1] + dt * acc;
+    xn[2] = x[2] + dt * x[3];
+    xn[3] = x[3] + dt * phi_acc;
+  }
+
+  __device__ void jac(const T (&x)[N], const T (&u)[M], T (&A)[N][N], T (&B)[N][M]) const {
+    const T om = x[3];
+    const T s = sin(x[2]), c = cos(x[2]);
+    T temp, D, Nn, phi_acc;
+    accel(x, u, s, c, temp, D, Nn, phi_acc);
+    const T dtemp_dphi = k1 * om * om * c;
+    const T dtemp_dom = T(2) * k1 * om * s;
+    const T dtemp_dF = T(1) / Mt;
+    const T dN_dphi = grav * c + s * temp - c * dtemp_dphi;
+    const T dD_dphi = T(2) * lp * mp * c * s / Mt;
+    const T dpa_dphi = (dN_dphi * D - Nn * dD_dphi) / (D * D);
+    const T dpa_dom = -c * dtemp_dom / D;
+    const T dpa_dF = -c * dtemp_dF / D;
+    const T dacc_dphi = dtemp_dphi - k1 * (dpa_dphi * c - phi_acc * s);
+    const T dacc_dom = dtemp_dom - k1 * c * dpa_dom;
+    const T dacc_dF = dtemp_dF - k1 * c * dpa_dF;
+    A[0][0] = T(1); A[0][1] = dt;   A[0][2] = T(0);           A[0][3] = T(0);
+    A[1][0] = T(0); A[1][1] = T(1); A[1][2] = dt * dacc_dphi; A[1][3] = dt * dacc_dom;
+    A[2][0] = T(0); A[2][1] = T(0); A[2][2] = T(1);           A[2][3] = dt;
+    A[3][0] = T(0); A[3][1] = T(0); A[3][2] = dt * dpa_dphi;  A[3][3] = T(1) + dt * dpa_dom;
+    B[0][0] = T(0);
+    B[1][0] = dt * dacc_dF;
+    B[2][0] = T(0);
+    B[3][0] = dt * dpa_dF;
+  }
+
+  __device__ void quad(int, const T (&x)[N], const T (&u)[M], T& q, T (&qv)[N], T (&Q)[N][N],
+                       T (&r)[M], T (&R)[M][M], T (&P)[M][N]) const {
+    q = T(0.1) * (x[0] * x[0] + x[1] * x[1] + T(10) * x[2] * x[2] + x[3] * x[3]) +
+        T(0.05) * u[0] * u[0];
+    const T w[N] = {T(0.2), T(0.2), T(2), T(0.2)};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      qv[i] = w[i] * x[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? w[i] : T(0);
+      P[0][i] = T(0);
+    }
+    r[0] = T(0.1) * u[0];
+    R[0][0] = T(0.1);
+  }
+
+  __device__ void term(const T (&x)[N], T& q, T (&qv)[N], T (&Q)[N][N]) const {
+    q = T(10) * (x[0] * x[0] + x[1] * x[1] + T(10) * x[2] * x[2] + x[3] * x[3]);
+    const T w[N] = {T(20), T(20), T(200), T(20)};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      qv[i] = w[i] * x[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? w[i] : T(0);
     }
   }
 };

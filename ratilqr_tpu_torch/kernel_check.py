@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ratilqr_tpu_torch.models import lqr_problem, quadrotor, unicycle
+from ratilqr_tpu_torch.models import cartpole, lqr_problem, quadrotor, unicycle
 from ratilqr_tpu_torch.ops import smallmat
 from ratilqr_tpu_torch.ops.approx import (Approximation, FoldedApprox,
                                           NoiseModel, approximate_folded,
@@ -71,12 +71,67 @@ TOL = {
 F32_DRIFT_FACTOR = 16.0
 
 
+def random_linear_arrays(n: int, m: int, seed: int = 0):
+    """The numpy arrays of :func:`random_linear`: ``A (n, n)`` near the
+    identity with spectral radius about 1, ``B (n, m)``, and the diagonal
+    stage, control and terminal weights ``q (n,)``, ``r (m,)``, ``qf
+    (n,)``, all from ``seed``."""
+    rng = np.random.default_rng(seed + 1000 * n + m)
+    A = 0.95 * np.eye(n) + 0.1 * rng.standard_normal((n, n)) / np.sqrt(n)
+    B = 0.3 * rng.standard_normal((n, m))
+    q = rng.uniform(0.5, 1.5, n)
+    r = rng.uniform(0.5, 1.5, m)
+    qf = rng.uniform(5.0, 15.0, n)
+    return dict(A=A, B=B, q=q, r=r, qf=qf)
+
+
+def random_linear(n: int, m: int, T: int, dtype, device, noise: float = 1e-3,
+                  seed: int = 0) -> RiskSensitiveProblem:
+    """A seeded linear problem with no tile model: ``x' = A x + B u``,
+    ``c = ½ Σ q x² + ½ Σ r u²``, ``h = ½ Σ qf x²``, ``W = noise·I``, from
+    :func:`random_linear_arrays` (the tests build the same problem in JAX
+    from the same arrays).  On CUDA it runs kernels A and D at ``(n, m)``
+    and nothing else."""
+    a = {k: torch.as_tensor(v, dtype=dtype, device=device)
+         for k, v in random_linear_arrays(n, m, seed).items()}
+    W = noise * torch.eye(n, dtype=dtype, device=device)
+    return RiskSensitiveProblem(
+        f=lambda x, u: a["A"] @ x + a["B"] @ u,
+        c=lambda k, x, u: 0.5 * (x @ (a["q"] * x)) + 0.5 * (u @ (a["r"] * u)),
+        h=lambda x: 0.5 * (x @ (a["qf"] * x)), W=lambda k: W, N=T)
+
+
+def linear_dims(model: str):
+    """``(n, m)`` of a ``linear<n>x<m>`` model name, else None."""
+    if not model.startswith("linear"):
+        return None
+    n, m = model[len("linear"):].split("x")
+    return int(n), int(m)
+
+
+def model_dims(model: str, T: int = 1):
+    """``(n, m)`` of a model of :func:`make_problem`."""
+    dims = linear_dims(model)
+    if dims is not None:
+        return dims
+    tm = make_problem(model, T, torch.float64, "cpu").tile_model
+    return tm.n, tm.m
+
+
 def make_problem(model: str, T: int, dtype, device) -> RiskSensitiveProblem:
-    """``unicycle``, ``lqr``, ``quadrotor``, or ``negative_curvature`` — the
-    restart- and h_fail-forcing fixture of tests/test_step_fused.py (control
-    cost −0.05·u·u, terminal cost 0.005·x·x), all with device models."""
+    """``unicycle``, ``lqr``, ``cartpole``, ``quadrotor``, or
+    ``negative_curvature`` — the restart- and h_fail-forcing fixture of
+    tests/test_step_fused.py (control cost −0.05·u·u, terminal cost
+    0.005·x·x), all with device models; or ``linear<n>x<m>``, the
+    :func:`random_linear` problem at (n, m), with no tile model (kernels A
+    and D only)."""
+    dims = linear_dims(model)
+    if dims is not None:
+        return random_linear(*dims, T, dtype, device)
     if model == "unicycle":
         return unicycle(N=T, dtype=dtype, device=device)
+    if model == "cartpole":
+        return cartpole(N=T, dtype=dtype, device=device)
     if model == "quadrotor":
         return quadrotor(N=T, dtype=dtype, device=device)
     if model == "lqr":
@@ -100,7 +155,7 @@ def bank_inputs(model: str, T: int, B: int, dtype, device, seed: int = 0):
     """Seeded ``(problem, x0 (B, n), l (B, T, m), L (B, T, m, n), theta,
     mu, noise)`` for a model."""
     prob = make_problem(model, T, dtype, device)
-    n, m = prob.tile_model.n, prob.tile_model.m
+    n, m = model_dims(model)
     g = torch.Generator(device="cpu").manual_seed(seed)
 
     def rand(*shape, scale):
@@ -454,22 +509,24 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
             "riccati_folded": riccati_folded}
 
 
-def kernel_timings(model: str, T: int, B: int, dtype, device
+def kernel_timings(model: str, T: int, B: int, dtype, device,
+                   kernels=("riccati", "step", "candidate", "riccati_folded")
                    ) -> Dict[str, Tuple[float, float, Optional[float]]]:
     """``{kernel: (wrapper ms, launch ms, plain ms)}`` on ``model`` at
-    (T, B), median of 5 by CUDA events: the wrapper with its layout copies,
-    the launch alone on inputs already in the kernel's layout, and the
-    plain version (None where it runs out of device memory).  Kernel A is
-    timed as the slim optimizing pass."""
+    (T, B), by CUDA events: the wrapper with its layout copies and the
+    launch alone on inputs already in the kernel's layout, median of 5,
+    and the plain version, median of 3 (None where it runs out of device
+    memory).  Kernel A is timed as the slim optimizing pass."""
     out = {}
-    for kernel, make in timing_cases(model, T, B, dtype, device).items():
-        wrapper, layout, launch, plain = make()
+    cases = timing_cases(model, T, B, dtype, device)
+    for kernel in kernels:
+        wrapper, layout, launch, plain = cases[kernel]()
         args = layout()
         launch_ms = time_ms(lambda: launch(args))
         del args
         wrapper_ms = time_ms(wrapper)
         try:
-            plain_ms = time_ms(plain)
+            plain_ms = time_ms(plain, reps=3)
         except torch.cuda.OutOfMemoryError:
             plain_ms = None
         out[kernel] = (wrapper_ms, launch_ms, plain_ms)

@@ -1,3 +1,3 @@
-from ratilqr_tpu_torch.models.examples import (double_integrator, lqr_problem,
-                                               nonlinear_toy, quadrotor,
-                                               unicycle)
+from ratilqr_tpu_torch.models.examples import (cartpole, double_integrator,
+                                               lqr_problem, nonlinear_toy,
+                                               quadrotor, unicycle)

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ratilqr_tpu_torch.ops.tile_model import (lqr_tile_model,
+from ratilqr_tpu_torch.ops.tile_model import (cartpole_tile_model,
+                                              lqr_tile_model,
                                               quadrotor_tile_model,
                                               unicycle_tile_model)
 from ratilqr_tpu_torch.problems import RiskSensitiveProblem
@@ -105,6 +106,36 @@ def unicycle(N: int = 100, dt: float = 0.1, noise: float = 1e-3,
         f=f, c=c, h=h, W=_const_W(noise * np.eye(3), dtype, device), N=N,
         f_jac=f_jac if analytic_jacobians else None,
         tile_model=unicycle_tile_model(dt, goal))
+
+
+def cartpole(N: int = 50, dt: float = 0.05, noise: float = 1e-4,
+             dtype=torch.float64, device="cuda") -> RiskSensitiveProblem:
+    """Cart-pole swing-up/balance (n=4, m=1): state ``(x, ẋ, φ, φ̇)`` with
+    φ = 0 upright (unstable), control = horizontal force."""
+    mc, mp, lp, grav = 1.0, 0.1, 0.5, 9.81
+
+    def f(x, u):
+        pos, vel, phi, om = x[0], x[1], x[2], x[3]
+        force = u[0]
+        sin, cos = torch.sin(phi), torch.cos(phi)
+        temp = (force + mp * lp * om ** 2 * sin) / (mc + mp)
+        phi_acc = ((grav * sin - cos * temp)
+                   / (lp * (4.0 / 3.0 - mp * cos ** 2 / (mc + mp))))
+        acc = temp - mp * lp * phi_acc * cos / (mc + mp)
+        return torch.stack([pos + dt * vel, vel + dt * acc,
+                            phi + dt * om, om + dt * phi_acc])
+
+    def c(k, x, u):
+        return 0.1 * (x[0] ** 2 + x[1] ** 2 + 10.0 * x[2] ** 2
+                      + x[3] ** 2) + 0.05 * u[0] ** 2
+
+    def h(x):
+        return 10.0 * (x[0] ** 2 + x[1] ** 2 + 10.0 * x[2] ** 2
+                       + x[3] ** 2)
+
+    return RiskSensitiveProblem(
+        f=f, c=c, h=h, W=_const_W(noise * np.eye(4), dtype, device), N=N,
+        tile_model=cartpole_tile_model(dt, mc, mp, lp, grav))
 
 
 def quadrotor(N: int = 50, dt: float = 0.02, noise: float = 1e-5,

@@ -9,6 +9,13 @@ kernel has one C entry point per type (``ratilqr_step_f32``, ...).  The
 build runs once per process, at the first launch on a CUDA tensor.  A
 missing ``nvcc`` or a failed build raises; nothing falls back.
 
+Kernels A and D (``riccati.cu``, ``riccati_folded.cu``) hold the shapes of
+the shipped models in that library.  Any other shape is built at its first
+use: :func:`shape_library` compiles the one source for that shape and type
+alone (``-DRQ_SHAPE_N=n [-DRQ_SHAPE_M=m]``) into
+``_build/<content hash>/shape_<kernel>_<shape>/`` and loads it with a
+``ctypes.CDLL`` of its own, once per process.
+
 Each kernel wrapper adds one to ``launch_counts[<kernel>]`` for every
 launch it makes, so a run can show which kernels its path went through.
 """
@@ -30,8 +37,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libratilqr_kernels.so"
-COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+CODEGEN_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = CODEGEN_FLAGS + ("-c",)
 LINK_FLAGS = ("-shared",)
 # The CUDA toolkit's default install prefix, used when nvcc is not on PATH.
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -123,6 +131,39 @@ def build() -> Path:
     return lib
 
 
+def shape_tag(shape) -> str:
+    """``"6x3"`` for kernel A's (n, m), ``"6"`` for kernel D's (n,)."""
+    return "x".join(str(int(d)) for d in shape)
+
+
+def build_shape(kernel: str, shape, suffix: str) -> Path:
+    """Compile ``csrc/<kernel>.cu`` for one shape and working type unless
+    built; returns the library's path.  ``shape`` is ``(n, m)`` for
+    ``riccati``, ``(n,)`` for ``riccati_folded``.  ``build.log`` in the
+    shape's directory gets the nvcc time and the ptxas report."""
+    code = _SUFFIXES.index(suffix)
+    tag = shape_tag(shape)
+    out_dir = BUILD_DIR / source_hash() / f"shape_{kernel}_{tag}"
+    lib = out_dir / f"lib{kernel}_{tag}_{suffix}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    defines = [f"-DRQ_SHAPE_{d}={int(v)}" for d, v in zip("NM", shape)]
+    tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
+    proc, secs = _run([_nvcc(), *CODEGEN_FLAGS, *LINK_FLAGS,
+                       f"-DRQ_DTYPE={code}", *defines, "-o", str(tmp),
+                       str(CSRC_DIR / f"{kernel}.cu")])
+    with open(out_dir / "build.log", "a") as log:
+        log.write(f"nvcc {kernel}.cu {suffix} shape {tag}: {secs:.1f} s, "
+                  f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}\n")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {kernel}.cu ({suffix}, shape "
+                           f"{tag}) with exit code {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
 def ptxas_report(log: str):
     """``(kernel, registers, spill stores, spill loads, stack frame)`` per
     entry function, from the ``-Xptxas -v`` lines of a ``build.log``
@@ -152,8 +193,9 @@ def ptxas_report(log: str):
 
 
 def report(lib: Path):
-    """Lines on a build: each translation unit's nvcc time, then each
-    kernel's registers, spills and stack frame."""
+    """Lines on a build (the shipped library or a shape's): each
+    translation unit's nvcc time, then each kernel's registers, spills and
+    stack frame."""
     log = (lib.parent / "build.log").read_text()
     lines = [line for line in log.splitlines() if line.startswith("nvcc ")]
     return lines + [f"ptxas {name}: {regs} registers, {stores} B spill "
@@ -182,21 +224,37 @@ def params_array(params):
     return (ctypes.c_double * MAX_PARAMS)(*padded)
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    lib = ctypes.CDLL(str(build()))
+def _bind(lib: ctypes.CDLL, suffixes) -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
-        for suffix in _SUFFIXES:
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        for suffix in suffixes:
+            fn = getattr(lib, f"{name}_{suffix}", None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
     return lib
 
 
-def entry(name: str, dtype):
-    """The C entry point of kernel ``name`` for ``dtype``."""
-    return getattr(library(), f"{name}_{dtype_suffix(dtype)}")
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    return _bind(ctypes.CDLL(str(build())), _SUFFIXES)
+
+
+@functools.lru_cache(maxsize=None)
+def shape_library(kernel: str, shape: tuple, suffix: str) -> ctypes.CDLL:
+    """Build (if needed) and load kernel ``kernel`` for one shape and
+    working type, once per process (:func:`build_shape`)."""
+    return _bind(ctypes.CDLL(str(build_shape(kernel, shape, suffix))),
+                 (suffix,))
+
+
+def entry(kernel: str, dtype, shape: tuple = ()):
+    """The C entry point ``ratilqr_<kernel>_<f32|f64>``: from the shipped
+    library, or, given ``shape``, from the library built for that shape
+    alone."""
+    suffix = dtype_suffix(dtype)
+    lib = shape_library(kernel, tuple(shape), suffix) if shape else library()
+    return getattr(lib, f"ratilqr_{kernel}_{suffix}")
 
 
 def check(rc: int, kernel: str) -> None:

@@ -5,7 +5,9 @@ its recompute variant, which compute the same value).
 :func:`candidate_bank` launches ``csrc/candidate.cu`` for a bank on a CUDA
 device and runs :func:`candidate_bank_plain` — ``approximate_folded``
 followed by the folded evaluating core (``candidate_pallas.py:427-432``) —
-for a bank on the CPU.
+for a bank on the CPU.  A problem with no tile model runs that composition
+with the folded Riccati dispatch (kernel D on CUDA), as JAX runs its XLA
+folded path without a tile model (``candidate_pallas.py:442-458``).
 """
 from __future__ import annotations
 
@@ -13,9 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from ratilqr_tpu_torch.ops import _build
+from ratilqr_tpu_torch.ops import _build, riccati_cuda
 from ratilqr_tpu_torch.ops.approx import NoiseModel, approximate_folded
-from ratilqr_tpu_torch.ops.riccati import _riccati_folded_core
 from ratilqr_tpu_torch.ops.tile_model import device_model
 
 Tensor = torch.Tensor
@@ -27,12 +28,18 @@ class CandidateOut(NamedTuple):
     m_fail: Tensor  # (B,) bool: neurotic breakdown
 
 
+def _composition(dp, problem, x_ref, l_cand, L, mu, theta, noise
+                 ) -> CandidateOut:
+    folded = approximate_folded(problem, x_ref, l_cand, L, mu, noise)
+    return CandidateOut(*dp(folded, theta))
+
+
 def candidate_bank_plain(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
                          mu: Tensor, theta: Tensor,
                          noise: NoiseModel) -> CandidateOut:
     """Plain PyTorch version of the fused candidate evaluation."""
-    folded = approximate_folded(problem, x_ref, l_cand, L, mu, noise)
-    return CandidateOut(*_riccati_folded_core(folded, theta))
+    return _composition(riccati_cuda.riccati_bank_folded_plain, problem,
+                        x_ref, l_cand, L, mu, theta, noise)
 
 
 def candidate_bank(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
@@ -41,7 +48,12 @@ def candidate_bank(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
     """Evaluate a bank of candidates: closed-loop rollout of ``l_cand
     (B, T, m)`` under gains ``L (B, T, m, n)`` around ``x_ref (B, T+1, n)``,
     quadratize, fold with ``mu (B,)``, folded evaluating DP with ``theta
-    (B,)``.  CUDA needs a problem whose tile model has a device model."""
+    (B,)``.  A problem with no tile model takes the composition through
+    :func:`~ratilqr_tpu_torch.ops.riccati_cuda.riccati_bank_folded`; on
+    CUDA a tile model needs a device model."""
+    if problem.tile_model is None:
+        return _composition(riccati_cuda.riccati_bank_folded, problem, x_ref,
+                            l_cand, L, mu, theta, noise)
     if x_ref.device.type == "cpu":
         return candidate_bank_plain(problem, x_ref, l_cand, L, mu, theta,
                                     noise)
@@ -87,7 +99,7 @@ def launch_candidate(tm, ins) -> CandidateOut:
     value = torch.empty(Bn, dtype=dtype, device=device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
-    launch = _build.entry("ratilqr_candidate", dtype)
+    launch = _build.entry(KERNEL, dtype)
     with torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
                     *map(_build.ptr, (x_scratch, value, m_fail)),

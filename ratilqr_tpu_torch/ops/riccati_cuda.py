@@ -12,6 +12,12 @@
 Both keep the JAX layout ``(B, T, ...)``: for a bank on a CUDA device they
 launch the kernel (and raise for what it does not take); for a bank on the
 CPU they run the plain version of the same signature.
+
+Like JAX's ``riccati_bank`` and ``riccati_bank_folded``, both take any
+shape: the shipped library holds the shipped models' shapes (``SHAPES``,
+``FOLDED_SHAPES``), and any other shape up to ``MAX_DIM`` is built at its
+first use (``_build.shape_library``).  Beyond ``MAX_DIM`` they raise
+before any build.
 """
 from __future__ import annotations
 
@@ -25,8 +31,22 @@ from ratilqr_tpu_torch.ops.riccati import _riccati_core, _riccati_folded_core
 Tensor = torch.Tensor
 KERNEL = "riccati"
 KERNEL_FOLDED = "riccati_folded"
-SHAPES = ((3, 2), (2, 2), (12, 4))   # (n, m) kernel A is instantiated for
-FOLDED_SHAPES = (3, 2, 12)           # n kernel D is instantiated for
+# (n, m) of kernel A and n of kernel D in the shipped library: the unicycle,
+# the LQR, the cartpole and the quadrotor.
+SHAPES = ((3, 2), (2, 2), (4, 1), (12, 4))
+FOLDED_SHAPES = (3, 2, 4, 12)
+# The largest n and m the kernels take, measured on one H100 by
+# ``python -m ratilqr_tpu_torch.dim_limit`` (PERF.md §6): the largest n
+# probed at which kernel A at (n, n) and kernel D at n build, in float32
+# and float64, and a B=4,099 launch agrees with the plain version.
+MAX_DIM = 32
+
+
+def _check_dims(kernel: str, *dims: int) -> None:
+    if max(dims) > MAX_DIM:
+        raise NotImplementedError(
+            f"{kernel} kernel: dimensions {dims} exceed {MAX_DIM}, the "
+            f"largest the CUDA kernels were measured to take (MAX_DIM)")
 
 
 class BankDP(NamedTuple):
@@ -96,9 +116,7 @@ def riccati_layout(approx, theta: Tensor, mu: Tensor,
     Bn, T, n = approx.A.shape[0], approx.A.shape[1], approx.A.shape[-1]
     m = approx.B.shape[-1]
     dtype, device = approx.A.dtype, approx.A.device
-    if (n, m) not in SHAPES:
-        raise NotImplementedError(f"riccati kernel: (n, m) = {(n, m)} is not "
-                                  f"instantiated (have {SHAPES})")
+    _check_dims(KERNEL, n, m)
     _build.dtype_suffix(dtype)   # raises for a type the kernel does not take
     w_shared = approx.W.dim() == 3
     expect = {"q": (Bn, T), "q_vec": (Bn, T, n), "Q": (Bn, T, n, n),
@@ -159,7 +177,8 @@ def launch_riccati(ins, shape, slim: bool):
     h_fail = empty(Bn, dt=torch.bool)
     outs = [value, s, s_vec, S, g, G, H, L, dl, m_fail, h_fail]
 
-    launch = _build.entry("ratilqr_riccati", dtype)
+    launch = _build.entry(KERNEL, dtype,
+                          () if (n, m) in SHAPES else (n, m))
     with torch.cuda.device(device):
         rc = launch(n, m, Bn, T, int(optimizing), int(slim), int(w_shared),
                     int(has_dl), *map(_build.ptr, ins),
@@ -206,9 +225,7 @@ def folded_layout(fa, theta: Tensor):
     :func:`launch_folded`."""
     Bn, T, n = fa.A.shape[0], fa.A.shape[1], fa.A.shape[-1]
     dtype, device = fa.A.dtype, fa.A.device
-    if n not in FOLDED_SHAPES:
-        raise NotImplementedError(f"riccati_folded kernel: n = {n} is not "
-                                  f"instantiated (have {FOLDED_SHAPES})")
+    _check_dims(KERNEL_FOLDED, n)
     w_shared = fa.W.dim() == 3
     expect = {"q": (Bn, T), "q_vec": (Bn, T, n), "Q": (Bn, T, n, n),
               "A": (Bn, T, n, n),
@@ -239,7 +256,8 @@ def launch_folded(ins, w_shared: bool) -> BankFolded:
     n, T, Bn = ins[3].shape[-3], ins[0].shape[0], ins[0].shape[-1]
     value = torch.empty(Bn, dtype=ins[0].dtype, device=ins[0].device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=value.device)
-    launch = _build.entry("ratilqr_riccati_folded", value.dtype)
+    launch = _build.entry(KERNEL_FOLDED, value.dtype,
+                          () if n in FOLDED_SHAPES else (n,))
     with torch.cuda.device(value.device):
         rc = launch(n, Bn, T, int(w_shared), *map(_build.ptr, ins),
                     _build.ptr(value), _build.ptr(m_fail),

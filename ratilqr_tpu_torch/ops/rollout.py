@@ -76,6 +76,19 @@ def rollout_open_loop_with_jac(problem: RiskSensitiveProblem, x0: Tensor,
     return torch.stack(xs, 1), torch.stack(As, 1), torch.stack(Bs, 1)
 
 
+def integrate_cost(problem: RiskSensitiveProblem, x_traj: Tensor,
+                   u_traj: Tensor) -> Tensor:
+    """Total trajectory cost ``Σ_k c(k, x_k, u_k) + h(x_T)``
+    (``ileqg.jl:115-124``) of each lane: ``x_traj (B, T+1, n)``, ``u_traj
+    (B, T, m)`` -> ``(B,)``."""
+    c, h = vmap(problem.c), vmap(problem.h)
+    Bn, T = u_traj.shape[:2]
+    total = h(x_traj[:, T])
+    stage = [c(torch.full((Bn,), t, device=x_traj.device), x_traj[:, t],
+               u_traj[:, t]) for t in range(T)]
+    return torch.stack(stage, 1).sum(1) + total
+
+
 def rollout_feedback(problem: RiskSensitiveProblem, x_ref: Tensor,
                      l_traj: Tensor, L_traj: Tensor
                      ) -> Tuple[Tensor, Tensor]:

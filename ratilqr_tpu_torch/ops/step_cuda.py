@@ -5,8 +5,11 @@ Counterpart of :mod:`ratilqr_tpu.ops.step_pallas`.  :func:`step_optimize_bank`
 launches ``csrc/step.cu`` for a bank on a CUDA device and runs
 :func:`step_optimize_bank_plain` — open-loop rollout with Jacobians,
 ``approximate_model`` and the slim optimizing core, the JAX per-example
-semantics (``step_pallas.py:341-346``) — for a bank on the CPU.
-:func:`step_optimize` adds the per-lane μ-restart loop outside the kernel.
+semantics (``step_pallas.py:341-346``) — for a bank on the CPU.  A problem
+with no tile model runs that composition with the Riccati dispatch
+(kernel A on CUDA), as JAX runs its XLA composition without a tile model
+(``step_pallas.py:353-364``).  :func:`step_optimize` adds the per-lane
+μ-restart loop outside the kernel.
 """
 from __future__ import annotations
 
@@ -14,10 +17,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ratilqr_tpu_torch.ops import _build
+from ratilqr_tpu_torch.ops import _build, riccati_cuda
 from ratilqr_tpu_torch.ops.approx import NoiseModel, approximate_model
 from ratilqr_tpu_torch.ops.riccati import MAX_MU_RESTARTS, mu_restart_loop
-from ratilqr_tpu_torch.ops.riccati_cuda import riccati_bank_plain
 from ratilqr_tpu_torch.ops.rollout import rollout_open_loop_with_jac
 from ratilqr_tpu_torch.ops.tile_model import device_model
 
@@ -34,20 +36,30 @@ class StepOut(NamedTuple):
     h_fail: Tensor  # (B,) bool
 
 
+def _composition(dp, problem, x0, l, theta, mu, noise) -> StepOut:
+    x, A, B = rollout_open_loop_with_jac(problem, x0, l)
+    approx = approximate_model(problem, l, x, A, B, noise)
+    bank = dp(approx, theta, mu, slim=True)
+    return StepOut(x, bank.value, bank.L, bank.dl, bank.m_fail, bank.h_fail)
+
+
 def step_optimize_bank_plain(problem, x0: Tensor, l: Tensor, theta: Tensor,
                              mu: Tensor, noise: NoiseModel) -> StepOut:
     """Plain PyTorch version of the fused step."""
-    x, A, B = rollout_open_loop_with_jac(problem, x0, l)
-    approx = approximate_model(problem, l, x, A, B, noise)
-    bank = riccati_bank_plain(approx, theta, mu, slim=True)
-    return StepOut(x, bank.value, bank.L, bank.dl, bank.m_fail, bank.h_fail)
+    return _composition(riccati_cuda.riccati_bank_plain, problem, x0, l,
+                        theta, mu, noise)
 
 
 def step_optimize_bank(problem, x0: Tensor, l: Tensor, theta: Tensor,
                        mu: Tensor, noise: NoiseModel) -> StepOut:
     """Fused step for a bank: ``x0 (B, n)``, ``l (B, T, m)``, ``theta``/
-    ``mu (B,)``, lane-invariant ``noise``.  CUDA needs a problem whose tile
-    model has a device model."""
+    ``mu (B,)``, lane-invariant ``noise``.  A problem with no tile model
+    takes the composition through :func:`~ratilqr_tpu_torch.ops.
+    riccati_cuda.riccati_bank`; on CUDA a tile model needs a device
+    model."""
+    if problem.tile_model is None:
+        return _composition(riccati_cuda.riccati_bank, problem, x0, l, theta,
+                            mu, noise)
     if x0.device.type == "cpu":
         return step_optimize_bank_plain(problem, x0, l, theta, mu, noise)
     if x0.device.type != "cuda":
@@ -90,7 +102,7 @@ def launch_step(tm, ins) -> StepOut:
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     h_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
-    launch = _build.entry("ratilqr_step", dtype)
+    launch = _build.entry(KERNEL, dtype)
     with torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
                     *map(_build.ptr, (x, value, L, dl, m_fail, h_fail)),

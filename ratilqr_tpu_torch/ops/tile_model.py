@@ -13,9 +13,11 @@ carries two things:
     parameters, passed to the kernel by value (at most
     ``_build.MAX_PARAMS`` of them).
 
-The unicycle, the quadratic integrator (LQR) and the quadrotor have device
-models; on CUDA the fused kernels raise ``NotImplementedError`` for any
-other problem.
+The unicycle, the quadratic integrator (LQR), the cartpole and the
+quadrotor have device models.  A problem with no tile model takes the
+composition of plain pieces and kernels A and D on CUDA (as JAX runs its
+XLA composition); a tile model without a device model raises
+``NotImplementedError`` there.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ import torch
 UNICYCLE = 0
 LQR = 1
 QUADROTOR = 2
+CARTPOLE = 3
+DEVICE_MODELS = {UNICYCLE: "unicycle", LQR: "LQR", QUADROTOR: "quadrotor",
+                 CARTPOLE: "cartpole"}
 
 
 def _mat(rows):
@@ -44,7 +49,7 @@ class TileModel:
       quad: ``(k, x, u) -> (q, q_vec, Q, r, R, P)`` — stage cost and its
         exact derivatives (``P = c_ux``).
       term: ``x -> (q, q_vec, Q)`` — terminal cost and derivatives.
-      model_id: device model id (``UNICYCLE``, ``LQR`` or ``QUADROTOR``).
+      model_id: device model id (a key of ``DEVICE_MODELS``).
       params: the device model's scalar parameters.
       n, m: state and control dimensions.
     """
@@ -60,12 +65,14 @@ class TileModel:
 def device_model(problem) -> TileModel:
     """The problem's tile model, if the fused CUDA kernels have its device
     model; raises ``NotImplementedError`` otherwise (never a silent plain
-    path)."""
+    path).  Callers route a problem with no tile model to the composition
+    before they get here."""
     tm = problem.tile_model
-    if tm is None or tm.model_id not in (UNICYCLE, LQR, QUADROTOR):
+    if tm is None or tm.model_id not in DEVICE_MODELS:
         raise NotImplementedError(
-            "the fused CUDA kernels need a tile model with a device model "
-            "(unicycle, LQR or quadrotor); this problem has none")
+            "the fused CUDA kernels need a tile model with a device model ("
+            + ", ".join(DEVICE_MODELS.values()) + "); this problem's tile "
+            "model has none")
     return tm
 
 
@@ -118,6 +125,84 @@ def unicycle_tile_model(dt: float, goal) -> TileModel:
 
     return TileModel(f_jac=f_jac, quad=quad, term=term, model_id=UNICYCLE,
                      params=(float(dt), gx, gy), n=3, m=2)
+
+
+def cartpole_tile_model(dt: float, mc: float, mp: float, lp: float,
+                        grav: float) -> TileModel:
+    """Tile model of :func:`ratilqr_tpu_torch.models.cartpole` (n=4, m=1):
+    closed-form Jacobians of the φ-from-upright cart-pole, with the
+    quotient-rule expansion of ``phi_acc = N(φ)/D(φ)``.  Device parameters
+    ``(dt, mc, mp, lp, grav)``."""
+    M = mc + mp
+    k1 = mp * lp / M
+
+    def f_jac(x, u):
+        pos, vel, phi, om = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+        force = u[..., 0]
+        s, c = torch.sin(phi), torch.cos(phi)
+        one = torch.ones_like(phi)
+        zero = torch.zeros_like(phi)
+
+        temp = (force + mp * lp * om * om * s) / M
+        D = lp * (4.0 / 3.0 - mp * c * c / M)
+        N = grav * s - c * temp
+        phi_acc = N / D
+        acc = temp - k1 * phi_acc * c
+        x_next = torch.stack([pos + dt * vel, vel + dt * acc,
+                              phi + dt * om, om + dt * phi_acc], -1)
+
+        dtemp_dphi = k1 * om * om * c
+        dtemp_dom = 2.0 * k1 * om * s
+        dtemp_dF = one / M
+        dN_dphi = grav * c + s * temp - c * dtemp_dphi
+        dD_dphi = 2.0 * lp * mp * c * s / M
+        dpa_dphi = (dN_dphi * D - N * dD_dphi) / (D * D)
+        dpa_dom = -c * dtemp_dom / D
+        dpa_dF = -c * dtemp_dF / D
+        dacc_dphi = dtemp_dphi - k1 * (dpa_dphi * c - phi_acc * s)
+        dacc_dom = dtemp_dom - k1 * c * dpa_dom
+        dacc_dF = dtemp_dF - k1 * c * dpa_dF
+
+        A = _mat([[one, dt * one, zero, zero],
+                  [zero, one, dt * dacc_dphi, dt * dacc_dom],
+                  [zero, zero, one, dt * one],
+                  [zero, zero, dt * dpa_dphi, one + dt * dpa_dom]])
+        B = _mat([[zero], [dt * dacc_dF], [zero], [dt * dpa_dF]])
+        return x_next, A, B
+
+    def quad(k, x, u):
+        del k
+        q = (0.1 * (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]
+                    + 10.0 * x[..., 2] * x[..., 2] + x[..., 3] * x[..., 3])
+             + 0.05 * u[..., 0] * u[..., 0])
+        one = torch.ones_like(q)
+        zero = torch.zeros_like(q)
+        q_vec = torch.stack([0.2 * x[..., 0], 0.2 * x[..., 1],
+                             2.0 * x[..., 2], 0.2 * x[..., 3]], -1)
+        Q = _mat([[0.2 * one, zero, zero, zero],
+                  [zero, 0.2 * one, zero, zero],
+                  [zero, zero, 2.0 * one, zero],
+                  [zero, zero, zero, 0.2 * one]])
+        R = _mat([[0.1 * one]])
+        P = _mat([[zero, zero, zero, zero]])
+        return q, q_vec, Q, 0.1 * u, R, P
+
+    def term(x):
+        q = 10.0 * (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]
+                    + 10.0 * x[..., 2] * x[..., 2] + x[..., 3] * x[..., 3])
+        one = torch.ones_like(q)
+        zero = torch.zeros_like(q)
+        q_vec = torch.stack([20.0 * x[..., 0], 20.0 * x[..., 1],
+                             200.0 * x[..., 2], 20.0 * x[..., 3]], -1)
+        Q = _mat([[20.0 * one, zero, zero, zero],
+                  [zero, 20.0 * one, zero, zero],
+                  [zero, zero, 200.0 * one, zero],
+                  [zero, zero, zero, 20.0 * one]])
+        return q, q_vec, Q
+
+    return TileModel(f_jac=f_jac, quad=quad, term=term, model_id=CARTPOLE,
+                     params=(float(dt), float(mc), float(mp), float(lp),
+                             float(grav)), n=4, m=1)
 
 
 def quadrotor_tile_model(dt: float, grav: float, goal) -> TileModel:

@@ -47,3 +47,10 @@ class RiskSensitiveProblem:
     @property
     def has_jacobian(self) -> bool:
         return self.f_jac is not None
+
+
+def problem_device(problem: RiskSensitiveProblem) -> torch.device:
+    """The device of the problem's noise model ``problem.W(0)``: where its
+    constants live, and where a solver on it runs unless the caller names
+    another device."""
+    return torch.as_tensor(problem.W(0)).device

@@ -18,9 +18,11 @@ a host loop over per-lane masks with one device sync per round:
 Lanes whose results a round discards (finished lanes, lanes whose
 optimizing DP failed) are left out of the inner loops, which changes no
 result.  On a CUDA device the DP passes run kernel A (default config), the
-fused kernels B and C (``fused_step_optimize`` / ``fused_candidate_eval``)
+fused kernels B and C (``fused_step_optimize`` / ``fused_candidate_eval``;
+for a problem with no tile model, their compositions over kernels A and D)
 or, with ``fold_candidate_eval``, the line search's folded evaluations run
-kernel D; on the CPU they run their plain versions.  Candidate evaluation
+kernel D; on the CPU they run their plain versions.  The bank runs on the
+problem's device.  Candidate evaluation
 follows the JAX precedence: ``fused_candidate_eval``, then
 ``fold_candidate_eval``, then the unfolded composition.
 """
@@ -41,7 +43,7 @@ from ratilqr_tpu_torch.ops.rollout import (rollout_feedback,
                                            rollout_open_loop,
                                            rollout_open_loop_with_jac)
 from ratilqr_tpu_torch.ops.step_cuda import step_optimize
-from ratilqr_tpu_torch.problems import RiskSensitiveProblem
+from ratilqr_tpu_torch.problems import RiskSensitiveProblem, problem_device
 from ratilqr_tpu_torch.utils.numerics import isapprox, max_control_deviation
 
 Tensor = torch.Tensor
@@ -315,19 +317,20 @@ def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
     ``thetas (B,)``; ``x0 (n,)`` and ``u_init (T, m)`` are shared by every
     lane (or given per lane as ``(B, n)``/``(B, T, m)``).
 
-    Inputs are moved to ``device`` (default: the device of ``thetas``) in
+    Inputs (tensors on any device, or numpy arrays) are moved to
+    ``device`` (default: the problem's device, :func:`problem_device`) in
     the dtype of ``x0``.  The only state kept between calls is the
     problem's noise model per (horizon, dtype, device).
     """
     noise_cache = {}
+    dev = torch.device(device) if device is not None else problem_device(
+        problem)
 
     def bank(x0, u_init, thetas) -> ILEQGResult:
-        thetas = torch.as_tensor(thetas)
-        dev = torch.device(device) if device is not None else thetas.device
         x0 = torch.as_tensor(x0, device=dev)
         dtype = x0.dtype
         u_init = torch.as_tensor(u_init, dtype=dtype, device=dev)
-        thetas = thetas.to(dtype=dtype, device=dev)
+        thetas = torch.as_tensor(thetas).to(dtype=dtype, device=dev)
         Bn = thetas.shape[0]
         if x0.dim() == 1:
             x0 = x0.expand(Bn, -1).contiguous()
@@ -345,11 +348,10 @@ def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
 
 def solve(problem: RiskSensitiveProblem, config: ILEQGConfig, x0, u_init,
           theta) -> ILEQGResult:
-    """One solve (``ileqg.jl:635-659``), run as a one-lane bank; the
-    result has no lane axis."""
-    x0 = torch.as_tensor(x0)
-    theta = torch.as_tensor(theta, dtype=x0.dtype, device=x0.device)
-    res = make_batched_solver(problem, config)(x0, u_init, theta.reshape(1))
+    """One solve (``ileqg.jl:635-659``), run as a one-lane bank on the
+    problem's device; the result has no lane axis."""
+    res = make_batched_solver(problem, config)(
+        x0, u_init, torch.as_tensor(theta).reshape(1))
     return ILEQGResult(*(f[0] for f in res))
 
 

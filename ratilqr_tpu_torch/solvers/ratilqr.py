@@ -12,7 +12,7 @@ Randomness comes from an explicit ``torch.Generator`` where the JAX code
 takes a PRNG key; the warm-start state is an explicit :class:`CEState`
 threaded through ``solve`` calls (the reference's mutable
 ``μ_init``/``σ_init``, ``…:66-68,297-305``).  Its scalars are 0-d CPU
-tensors in the working dtype; the bank runs on the device of ``x0``.
+tensors in the working dtype; the bank runs on the problem's device.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ratilqr_tpu_torch.config import CrossEntropyConfig
-from ratilqr_tpu_torch.problems import RiskSensitiveProblem
+from ratilqr_tpu_torch.problems import RiskSensitiveProblem, problem_device
 from ratilqr_tpu_torch.solvers.ileqg import ILEQGResult, make_batched_solver
 
 Tensor = torch.Tensor
@@ -107,7 +107,7 @@ def costs_of(res: ILEQGResult, thetas: Tensor, kl_bound) -> Tensor:
 @functools.lru_cache(maxsize=32)
 def make_cost_fn(problem: RiskSensitiveProblem, config: CrossEntropyConfig):
     """Batched outer objective ``cost_fn(x0, u_init, thetas, kl_bound)``
-    over a θ-bank on the device of ``x0``; ``cost_fn.bank`` is its iLEQG
+    over a θ-bank on the problem's device; ``cost_fn.bank`` is its iLEQG
     bank.
 
     Cached on the problem's and config's field values (dataclass
@@ -116,10 +116,11 @@ def make_cost_fn(problem: RiskSensitiveProblem, config: CrossEntropyConfig):
     bank's noise model.
     """
     bank = make_batched_solver(problem, config.ileqg)
+    dev = problem_device(problem)
 
     def cost_fn(x0, u_init, thetas, kl_bound) -> Tensor:
-        x0 = torch.as_tensor(x0)
-        thetas = torch.as_tensor(thetas).to(dtype=x0.dtype, device=x0.device)
+        x0 = torch.as_tensor(x0, device=dev)
+        thetas = torch.as_tensor(thetas).to(dtype=x0.dtype, device=dev)
         return costs_of(bank(x0, u_init, thetas), thetas, kl_bound)
 
     cost_fn.bank = bank
@@ -268,7 +269,7 @@ def solve(problem: RiskSensitiveProblem, config: CrossEntropyConfig,
     if kl_bound < 0:
         raise ValueError("KL divergence bound must be non-negative")
     verbose = verbose or config.verbose
-    x0 = torch.as_tensor(x0)
+    x0 = torch.as_tensor(x0, device=problem_device(problem))
     dtype = x0.dtype
     u_init = torch.as_tensor(u_init, dtype=dtype, device=x0.device)
     state = reset(state, dtype)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ratilqr_tpu_torch.config import CrossEntropyConfig
-from ratilqr_tpu_torch.problems import RiskSensitiveProblem
+from ratilqr_tpu_torch.problems import RiskSensitiveProblem, problem_device
 from ratilqr_tpu_torch.solvers.ratilqr import (CEState, RATiLQRResult,
                                                _scalar, draw_generation,
                                                make_cost_fn, plan_value,
@@ -42,7 +42,7 @@ def solve(problem: RiskSensitiveProblem, config: CrossEntropyConfig,
     """RAT iLQR ``solve!`` that never raises on an exhausted budget; returns
     the same :class:`RATiLQRResult` as the host path, with its flags set."""
     kl_bound = float(kl_bound)
-    x0 = torch.as_tensor(x0)
+    x0 = torch.as_tensor(x0, device=problem_device(problem))
     dtype = x0.dtype
     u_init = torch.as_tensor(u_init, dtype=dtype, device=x0.device)
     state = reset(state, dtype)

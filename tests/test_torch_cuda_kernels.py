@@ -1,7 +1,9 @@
 """The four CUDA kernels against their plain PyTorch versions (unicycle,
-LQR and the n=12 quadrotor), the folded-evaluation bank against the
-fused-candidate bank, and the host-sync and busy-time helpers, on a CUDA
-device (skipped without one).
+LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
+at its first use), the folded-evaluation bank against the fused-candidate
+bank, the fused flags on a problem with no tile model, a bank from numpy
+inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
+without one).
 
 This file imports no JAX, so it also runs on a machine that has none:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -18,6 +20,8 @@ from ratilqr_tpu_torch.ops import _build  # noqa: E402
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
 QUADROTOR = ("quadrotor", 12, 37)   # n=12, m=4
+CARTPOLE = ("cartpole", 30, 133)    # n=4, m=1
+LINEAR = ("linear6x3", 20, 133)     # no tile model; A and D built for (6, 3)
 
 
 @pytest.fixture
@@ -32,7 +36,8 @@ def device():
                          ids=lambda v: "-".join(k for k, b in v.items() if b)
                          or "evaluating")
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133),
-                                       ("lqr", 7, 5), QUADROTOR])
+                                       ("lqr", 7, 5), QUADROTOR, CARTPOLE,
+                                       LINEAR])
 def test_riccati_kernel_matches_plain(device, model, T, B, variant, dtype):
     kc.check_riccati(model, T, B, dtype, device, **variant)
 
@@ -40,14 +45,14 @@ def test_riccati_kernel_matches_plain(device, model, T, B, variant, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
                                        ("negative_curvature", 7, 6),
-                                       QUADROTOR])
+                                       QUADROTOR, CARTPOLE])
 def test_step_kernel_matches_plain(device, model, T, B, dtype):
     kc.check_step(model, T, B, dtype, device)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
-                                       QUADROTOR])
+                                       QUADROTOR, CARTPOLE])
 def test_candidate_kernel_matches_plain(device, model, T, B, dtype):
     kc.check_candidate(model, T, B, dtype, device)
 
@@ -55,7 +60,7 @@ def test_candidate_kernel_matches_plain(device, model, T, B, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shared_w", [True, False])
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
-                                       QUADROTOR])
+                                       QUADROTOR, CARTPOLE, LINEAR])
 def test_riccati_folded_kernel_matches_plain(device, model, T, B, shared_w,
                                              dtype):
     kc.check_riccati_folded(model, T, B, dtype, device, shared_w)
@@ -89,7 +94,7 @@ def test_fold_path_bank_matches_fused_candidate_bank(device):
                                atol=0)
 
 
-@pytest.mark.parametrize("model", ["unicycle", "quadrotor"])
+@pytest.mark.parametrize("model", ["unicycle", "quadrotor", "cartpole"])
 def test_fixtures_fail_where_they_should(device, model):
     m_fail, _ = kc.expect_fail_pattern(model, 20, 10, torch.float32, device)
     assert m_fail == 2, "the two θ = 1e6 lanes must fail M"
@@ -104,15 +109,64 @@ def test_wrappers_count_launches_and_reject_what_they_cannot_run(device):
     assert _build.launch_counts["candidate"] == 1
     prob, x0, l, _, theta, mu, noise = kc.bank_inputs(
         "lqr", 7, 5, torch.float32, device)
-    from ratilqr_tpu_torch.models import double_integrator
+    import dataclasses
     from ratilqr_tpu_torch.ops.step_cuda import step_optimize_bank
+    no_device_model = dataclasses.replace(
+        prob, tile_model=dataclasses.replace(prob.tile_model, model_id=99))
     with pytest.raises(NotImplementedError):
-        step_optimize_bank(double_integrator(N=7, dtype=torch.float32,
-                                             device=device),
-                           x0, l, theta, mu, noise)
+        step_optimize_bank(no_device_model, x0, l, theta, mu, noise)
     with pytest.raises(NotImplementedError):
         step_optimize_bank(prob, x0.half(), l.half(), theta.half(),
                            mu.half(), noise)
+    from ratilqr_tpu_torch.ops.riccati_cuda import MAX_DIM, riccati_bank
+    big = MAX_DIM + 1
+    ap, _, _, theta, mu = kc._riccati_fixture(f"linear{big}x1", 2, 3,
+                                              torch.float64, device, True)
+    with pytest.raises(NotImplementedError, match=str(MAX_DIM)):
+        riccati_bank(ap, theta, mu)
+    kc.clear_caches()
+
+
+def _linear_bank(device, config, x0=None, u0=None, thetas=None):
+    import numpy as np
+    from ratilqr_tpu_torch import make_batched_solver
+    n, m = kc.linear_dims(LINEAR[0])
+    prob = kc.make_problem(LINEAR[0], LINEAR[1], torch.float64, device)
+    x0 = np.linspace(-1.0, 1.0, n) if x0 is None else x0
+    u0 = np.zeros((LINEAR[1], m)) if u0 is None else u0
+    thetas = np.linspace(0.0, 0.05, 33) if thetas is None else thetas
+    return make_batched_solver(prob, config)(x0, u0, thetas)
+
+
+@pytest.mark.parametrize("flags,path", [
+    (dict(), ("riccati",)),
+    (dict(fused_step_optimize=True, fused_candidate_eval=True),
+     ("riccati", "riccati_folded")),
+    (dict(fold_candidate_eval=True), ("riccati", "riccati_folded"))],
+    ids=["default", "fused-flags", "fold"])
+def test_problem_without_tile_model_runs_kernels_a_and_d(device, flags, path):
+    """With no tile model the fused flags take their composition (kernels A
+    and D), as JAX takes its XLA composition; results equal the CPU's."""
+    from ratilqr_tpu_torch import ILEQGConfig
+    _build.reset_launch_counts()
+    res = _linear_bank(device, ILEQGConfig(**flags))
+    launched = {k: v for k, v in _build.launch_counts.items() if v}
+    assert set(launched) == set(path), launched
+    cpu = _linear_bank(torch.device("cpu"), ILEQGConfig(**flags))
+    assert not bool(cpu.failed.any())
+    assert torch.equal(res.failed.cpu(), cpu.failed)
+    assert torch.equal(res.iterations.cpu(), cpu.iterations)
+    torch.testing.assert_close(res.value.cpu(), cpu.value, rtol=1e-9,
+                               atol=0)
+
+
+def test_bank_from_numpy_inputs_runs_on_the_problems_card(device):
+    from ratilqr_tpu_torch import ILEQGConfig
+    _build.reset_launch_counts()
+    res = _linear_bank(device, ILEQGConfig(fused_candidate_eval=True))
+    assert res.value.device.type == "cuda" and res.x.device.type == "cuda"
+    assert _build.launch_counts["riccati"] > 0
+    assert _build.launch_counts["riccati_folded"] > 0
 
 
 def test_sync_count_and_device_busy(device):

@@ -137,7 +137,8 @@ def test_result_round_trip_with_n12_gains():
 
 @pytest.mark.parametrize("entry", [
     tm.unicycle, tm.lqr_problem, tm.double_integrator, tm.nonlinear_toy,
-    tm.quadrotor, convert.result_from_numpy], ids=lambda f: f.__name__)
+    tm.quadrotor, tm.cartpole, convert.result_from_numpy],
+    ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
