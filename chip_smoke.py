@@ -9,7 +9,9 @@ Phases (each prints a line and raises on failure):
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
-     and stack frame; then builds kernel A at (6, 3) and kernel D at n=6,
+     and stack frame, and kernel C's one-solve-per-team kernel (the
+     quadrotor) with its shared memory a block; then builds kernel A at
+     (6, 3) and kernel D at n=6,
      shapes outside the shipped library, float32 and float64, and prints
      each unit's build time and ptxas report;
   3. every kernel against its plain PyTorch version on the card, float32
@@ -49,7 +51,8 @@ Phases (each prints a line and raises on failure):
      on the CPU through the plain path;
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144), the
-     quadrotor (B=16,384) and the cartpole (both); warm solves/s.
+     quadrotor (B=16,384; kernel C also at 262,144) and the cartpole
+     (both); warm solves/s.
 The line before the card's name is the JSON kernel record; the last line
 is the JSON device record.
 """
@@ -66,7 +69,7 @@ from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
                                RATiLQRSolver, kernel_check,
                                make_batched_solver)
 from ratilqr_tpu_torch.models import cartpole, quadrotor, unicycle
-from ratilqr_tpu_torch.ops import _build
+from ratilqr_tpu_torch.ops import _build, candidate_cuda, tile_model
 from ratilqr_tpu_torch.solvers import ratilqr, ratilqr_jit
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
                                                 device_busy)
@@ -109,10 +112,20 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "step": ("ratilqr_tpu_torch/csrc/step.cu",
              "ratilqr_tpu/ops/step_pallas.py:81"),
     "candidate": ("ratilqr_tpu_torch/csrc/candidate.cu",
-                  "ratilqr_tpu/ops/candidate_pallas.py:81"),
+                  "ratilqr_tpu/ops/candidate_pallas.py:81 (_candidate_kernel)"
+                  " and ratilqr_tpu/ops/candidate_pallas.py:184"
+                  " (_candidate_kernel_recompute)"),
     "riccati_folded": ("ratilqr_tpu_torch/csrc/riccati_folded.cu",
                        "ratilqr_tpu/ops/riccati_pallas.py:581"),
 }
+DESIGNS = {   # how each kernel spreads a bank over the card
+    "riccati": "one solve per thread",
+    "step": "one solve per thread",
+    "candidate": ("one solve per team of 16 lanes (two a warp, 8 a block, "
+                  "working set in shared memory) at n=12, the quadrotor; one "
+                  "solve per thread at n <= 4, the unicycle, LQR and the "
+                  "cartpole"),
+    "riccati_folded": "one solve per thread"}
 SHAPES = {   # the (n, m) each kernel runs on the paths of this script
     "riccati": "(3,2) (2,2) (4,1) (12,4) shipped; (6,3) built at first use",
     "step": "unicycle, LQR, cartpole, quadrotor",
@@ -168,6 +181,17 @@ def build():
           f"({lib_path.parent.name})", flush=True)
     for line in _build.report(lib_path):
         print("  " + line, flush=True)
+    rows = _build.ptxas_report((lib_path.parent / "build.log").read_text())
+    for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
+        nbytes, teams, lanes = candidate_cuda.block_shared_memory(
+            tile_model.QUADROTOR, dtype)
+        for kernel, regs, stores, loads, stack in rows:   # demangled or not
+            if (f"candidate_team_kernel<{name}," in kernel
+                    or f"candidate_team_kernelI{name[0]}" in kernel):
+                print(f"kernel C, one solve per team (quadrotor, {dtype}): "
+                      f"{regs} registers, {stack} B stack frame, {stores} B "
+                      f"spill stores, {nbytes} B dynamic shared memory a "
+                      f"block of {teams} teams of {lanes} lanes", flush=True)
     units = [(kernel, shape, suffix)
              for kernel, shape in (("riccati", (6, 3)),
                                    ("riccati_folded", (6,)))
@@ -636,29 +660,32 @@ def timings(device, name_power):
     wrapper, launch-alone and plain times and its bound."""
     f32 = torch.float32
     result = {}
-    # The kernel record's widths, and both for the cartpole; the unicycle
-    # at B=16,384 and the quadrotor at 262,144 are left out to keep the run
-    # short (PERF.md keeps their last numbers).
-    for model, horizon, widths in (("unicycle", T, (B_WIDE,)),
-                                   ("quadrotor", QUAD_T, (B_MAIN,)),
-                                   ("cartpole", CART_T, (B_MAIN, B_WIDE))):
+    # The kernel record's widths, and both for the cartpole and for kernel
+    # C on the quadrotor; the unicycle at B=16,384 and the other quadrotor
+    # kernels at 262,144 are left out to keep the run short (PERF.md keeps
+    # their last numbers).
+    every = ("riccati", "step", "candidate", "riccati_folded")
+    for model, horizon, B, kernels in (
+            ("unicycle", T, B_WIDE, every),
+            ("quadrotor", QUAD_T, B_MAIN, every),
+            ("quadrotor", QUAD_T, B_WIDE, ("candidate",)),
+            ("cartpole", CART_T, B_MAIN, every),
+            ("cartpole", CART_T, B_WIDE, every)):
         n, m = MODEL_DIMS[model]
-        for B in widths:
-            times = kernel_check.kernel_timings(model, horizon, B, f32,
-                                                device)
-            for kernel, (ms, launch_ms, plain_ms) in times.items():
-                bound, by = kernel_check.bound_ms(kernel, n, m, horizon, B,
-                                                  f32)
-                result.setdefault((model, B), {})[kernel] = dict(
-                    ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by)
-                plain = ("not measured (out of device memory)"
-                         if plain_ms is None else f"{plain_ms:.3f} ms")
-                print(f"time {kernel} {model} T={horizon} B={B} f32: wrapper "
-                      f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, plain "
-                      f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
-                      f"the plain version of 3, CUDA events; {name_power})",
-                      flush=True)
+        times = kernel_check.kernel_timings(model, horizon, B, f32, device,
+                                            kernels)
+        for kernel, (ms, launch_ms, plain_ms) in times.items():
+            bound, by = kernel_check.bound_ms(kernel, n, m, horizon, B, f32)
+            result.setdefault((model, B), {})[kernel] = dict(
+                ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+            plain = ("not measured (out of device memory)"
+                     if plain_ms is None else f"{plain_ms:.3f} ms")
+            print(f"time {kernel} {model} T={horizon} B={B} f32: wrapper "
+                  f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, plain "
+                  f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
+                  f"the plain version of 3, CUDA events; {name_power})",
+                  flush=True)
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -679,8 +706,9 @@ def timings(device, name_power):
 def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
     the top level, the cartpole path (T=50, B=16,384, f32) under
-    ``"cartpole"`` and the unicycle path at B=262,144 under
-    ``"unicycle"``."""
+    ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``
+    and, for kernel C, the quadrotor at B=262,144 under
+    ``"quadrotor_wide"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():
         quad = times[("quadrotor", B_MAIN)][name]
@@ -688,7 +716,7 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
         cart = times[("cartpole", B_MAIN)][name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "shapes": SHAPES[name],
+            "design": DESIGNS[name], "shapes": SHAPES[name],
             "launches": sum(c.get(name, 0) for c in quad_counts.values()),
             "launches_by_path": {**{f"quadrotor_{k}": c.get(name, 0)
                                     for k, c in quad_counts.items()},
@@ -707,6 +735,11 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
                 "launches_by_path": {f"cartpole_{k}": c.get(name, 0)
                                      for k, c in cart_counts.items()},
                 "at": f"cartpole n=4 m=1 T={CART_T} B={B_MAIN} f32"}})
+        wide = times.get(("quadrotor", B_WIDE), {}).get(name)
+        if wide is not None:
+            rows[-1]["quadrotor_wide"] = {
+                **wide, "library_ms": None,
+                "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_WIDE} f32"}
     return {"kernels": rows}
 
 

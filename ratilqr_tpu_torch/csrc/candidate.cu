@@ -9,13 +9,40 @@
 // (candidate_pallas.py:427-432); with L = 0 and x̄ = x0 it is also the
 // initialize! evaluation (ileqg.py:351-360).
 //
-// Design: one solve per thread.  The forward phase rolls the policy
+// Two designs, one per size of model (launch() picks by Model::N):
+//
+// One solve per thread (n ≤ kUnrollMax: the unicycle, LQR, the cartpole;
+// candidate_kernel).  The forward phase rolls the policy
 // u = l_cand + L(x − x̄) out in registers and stores the (T+1)·n states in
 // a scratch buffer the wrapper allocates (lane-minor, (T+1, n, B)); the
 // backward phase re-reads x_t, x̄_t, l_t and L_t, recomputes u, the model
 // blocks and the fold
 //   q̄_vec = q_vec + Lᵀr,  Q̄ = sym(Q + LᵀP + PᵀL + LᵀRL + μLᵀL),  Ā = A + BL
 // and runs folded_step (dp_step.cuh).  Only value and m_fail are written.
+//
+// One solve per team (n > kUnrollMax: the quadrotor; candidate_team_kernel).
+// Same phases and arithmetic, spread over a team of 16 lanes (two teams a
+// warp) with the algebra of team_mat.cuh; K = kTeams = 8 teams a block,
+// on 8 consecutive lanes b.  Each step, the block stages W_t, W⁻¹_t,
+// logdet W_t once and every team's x̄_t, l_t, L_t (and x_t) in one
+// coalesced pass (8 neighbouring lanes of one entry are one 32-byte
+// sector in f32).  Each team keeps its working set in shared memory: the
+// carry (s⃗, S), Q̄, Ā, the factor of M (later DS), M⁻¹S (later AᵀDS), the
+// model's B, P, R, RL and the vectors, 1,048 words: 34,692 bytes a block
+// in f32 and 69,384 in f64 with W and W⁻¹ (dynamic shared memory, so the
+// launch raises the block's limit first).  No array lives in a thread's
+// stack frame.  One lane calls the device model on the team's shared
+// arrays; lane i owns row i of every product and of M's factor (held in
+// registers, its pivots and columns passed round by shuffles); lanes 0-11
+// solve the 12 columns of M⁻¹S and lane 12 M⁻¹s⃗, each in registers.
+// What bounds it on the H100 is no longer memory but the instruction rate
+// of the team's shared-memory loads and multiply-adds and its serial parts
+// (the factor's 12 pivots, the substitutions' dependent chains, the
+// one-lane model calls and risk term), ~12 warp barriers and 2 block
+// barriers a step; two teams a warp run their serial parts at once.
+// Registers (96 a thread in f32) leave 5 blocks, 40 teams, an SM.  A team
+// past the end of the bank reads lane B − 1, keeps every barrier and
+// stores nothing.
 //
 // Bound on the H100: per step and lane the two phases read x̄ (n), l (m)
 // and L (m·n) twice, write x (n) once and read it back: 2·11 + 6 = 28 words
@@ -32,10 +59,11 @@
 // At n=12, m=4 (the quadrotor; the TPU ran its recompute variant there,
 // candidate_pallas.py:440-456) a step needs x̄, l and L, 64 words per
 // lane (this design reads them twice), against ~21,900 operations of fold
-// and folded DP: at B = 16,384 and T = 50 that
-// is 0.21 GB (0.06 ms) against 1.79e10 operations (0.27 ms), bound by the
-// FP32 rate, with the 12x12 working set spilled out of registers as in
-// step.cu.
+// and folded DP: at B = 16,384 and T = 50 that is 0.21 GB (0.06 ms)
+// against 1.79e10 operations (0.27 ms), bound by the FP32 rate.  One solve
+// per thread kept its 12x12 working set in a 10.4 KB stack frame, 170 MB
+// of local memory at that width (more than the 50 MB L2), with 4 warps an
+// SM: hence the team design above.
 //
 // At n=4, m=1 (the cartpole) a step reads x̄, l and L (9 words) and the
 // state it stored, against ~950 operations of fold and folded DP: at
@@ -45,6 +73,7 @@
 
 #include "dp_step.cuh"
 #include "dtype.cuh"
+#include "team_mat.cuh"
 #include "tile_model.cuh"
 
 namespace {
@@ -154,21 +183,212 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
   a.m_fail[b] = m_fail;
 }
 
+// ---- One solve per team (N > rq::kUnrollMax: the quadrotor) ----
+
+// Lanes per team (16: half a warp; 32: a warp) and teams per block, each
+// team on one lane b.  -DRQ_TEAM_LANES=.. -DRQ_TEAMS=.. build other shapes
+// for python -m ratilqr_tpu_torch.team_sweep to time.
+#ifndef RQ_TEAM_LANES
+#define RQ_TEAM_LANES 16
+#endif
+#ifndef RQ_TEAMS
+#define RQ_TEAMS 8
+#endif
+constexpr int kTeamLanes = RQ_TEAM_LANES;
+constexpr int kTeams = RQ_TEAMS;
+static_assert(32 % kTeamLanes == 0 && kTeamLanes * kTeams % 32 == 0,
+              "teams fill whole warps and never straddle one");
+
+// One team's working set in shared memory: the carry (s⃗, S), the model
+// blocks and the fold (q̄, Q̄, Ā, P, R, r, B, RL = R·L), the staged x̄_t,
+// l_t, L_t and x_t, the policy's u and folded_step's scratch.
+template <typename T, int N, int M>
+struct TeamSmem {
+  T S[N][N], Q[N][N], A[N][N];
+  rq::team::FoldScratch<T, N> w;
+  T Bm[N][M], P[M][N], R[M][M], RL[M][N], L[M][N];
+  T x[2][N], xr[N], qv[N], sv[N], l[M], u[M], r[M];
+};
+
+// A block's shared memory: W_t, W⁻¹_t and logdet W_t (the same for every
+// lane) and its K teams.
+template <typename T, int N, int M, int K>
+struct BlockSmem {
+  T W[N][N], Wi[N][N], ldW;
+  TeamSmem<T, N, M> team[K];
+};
+
+// Copy C entries per lane of step t of a lane-minor (·, C, B) array into
+// field `f` of each of the block's K teams: K consecutive lanes of one
+// entry are neighbours in memory, so the block reads them together.
+// Lanes past the bank read lane B − 1 (their teams store nothing).
+template <int C, typename T, typename Team, typename Field, int K>
+__device__ __forceinline__ void stage(const T* src, int t, int64_t B, int b0, Team (&teams)[K],
+                                      Field Team::*f) {
+  for (int idx = threadIdx.x; idx < C * K; idx += blockDim.x) {
+    const int k = idx % K, c = idx / K;
+    const int64_t b = b0 + k < B ? b0 + k : B - 1;
+    reinterpret_cast<T*>(&(teams[k].*f))[c] = src[(int64_t(t) * C + c) * B + b];
+  }
+}
+
+// u = l_t + L_t (x − x̄_t) on lanes 0..M−1 (policy's arithmetic).
+template <typename T, int N, int M>
+__device__ __forceinline__ void team_policy(int lane, TeamSmem<T, N, M>& tm,
+                                            const T (&x)[N]) {
+  if (lane < M) {
+    T acc = tm.L[lane][0] * (x[0] - tm.xr[0]);
+    for (int j = 1; j < N; ++j) acc = acc + tm.L[lane][j] * (x[j] - tm.xr[j]);
+    tm.u[lane] = tm.l[lane] + acc;
+  }
+  __syncwarp();
+}
+
+// The same trial as candidate_kernel, one solve per team: the forward
+// rollout, then per step the model blocks (one lane calls the device
+// model on the team's shared arrays), the fold and rq::team::folded_step.
+// Each step starts with one block-wide pass that stages W_t, W⁻¹_t and
+// every team's x̄_t, l_t, L_t (and x_t) in shared memory.
+template <typename T, template <typename> class Model, int Lanes, int K>
+__global__ void __launch_bounds__(Lanes * K) candidate_team_kernel(const CandidateArgs a) {
+  using Mod = Model<T>;
+  constexpr int N = Mod::N, M = Mod::M;
+  using Team = TeamSmem<T, N, M>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<BlockSmem<T, N, M, K>*>(smem_raw);
+  const int lane = threadIdx.x % Lanes, k = threadIdx.x / Lanes;
+  const int b0 = blockIdx.x * K, b = b0 + k;
+  const bool live = b < a.B;   // a team past the bank keeps every barrier
+  const int64_t B = a.B, bc = live ? b : a.B - 1;
+  Team& tm = sm.team[k];
+  const Mod model(a.p);
+  const T* xr = static_cast<const T*>(a.x_ref);
+  const T* lc = static_cast<const T*>(a.l_cand);
+  const T* Lg = static_cast<const T*>(a.L);
+  const T* Ws = static_cast<const T*>(a.W);
+  const T* Wis = static_cast<const T*>(a.W_inv);
+  T* xs = static_cast<T*>(a.x_scratch);
+
+  // Forward: closed-loop rollout from x̄_0, x_t ping-ponging in tm.x.
+  if (lane < N) {
+    tm.x[0][lane] = xr[lane * B + bc];
+    if (live) xs[lane * B + b] = tm.x[0][lane];
+  }
+  int cur = 0;
+  for (int t = 0; t < a.T; ++t) {
+    __syncthreads();
+    stage<N>(xr, t, B, b0, sm.team, &Team::xr);
+    stage<M>(lc, t, B, b0, sm.team, &Team::l);
+    stage<M * N>(Lg, t, B, b0, sm.team, &Team::L);
+    __syncthreads();
+    team_policy<T, N, M>(lane, tm, tm.x[cur]);
+    if (lane == 0) model.f(tm.x[cur], tm.u, tm.x[1 - cur]);
+    __syncwarp();
+    cur = 1 - cur;
+    if (lane < N && live) xs[((t + 1) * N + lane) * B + b] = tm.x[cur][lane];
+  }
+
+  // Backward: fold recomputed per step, folded evaluating DP.
+  T s = T(0), q = T(0);   // lane 0's
+  if (lane == 0) model.term(tm.x[cur], s, tm.sv, tm.S);
+  const T theta = static_cast<const T*>(a.theta)[bc];
+  const T mu = static_cast<const T*>(a.mu)[bc];
+  bool m_fail = false;
+  for (int t = a.T - 1; t >= 0; --t) {
+    __syncthreads();
+    stage<N>(xr, t, B, b0, sm.team, &Team::xr);
+    stage<M>(lc, t, B, b0, sm.team, &Team::l);
+    stage<M * N>(Lg, t, B, b0, sm.team, &Team::L);
+    stage<N>(xs, t, B, b0, sm.team, &Team::x);   // into x[0]
+    for (int idx = threadIdx.x; idx < N * N; idx += blockDim.x) {
+      (&sm.W[0][0])[idx] = Ws[int64_t(t) * N * N + idx];
+      (&sm.Wi[0][0])[idx] = Wis[int64_t(t) * N * N + idx];
+    }
+    if (threadIdx.x == 0) sm.ldW = static_cast<const T*>(a.logdet_W)[t];
+    __syncthreads();
+    const T (&x)[N] = tm.x[0];
+    team_policy<T, N, M>(lane, tm, x);
+    if (lane == 0) {
+      model.jac(x, tm.u, tm.A, tm.Bm);
+      model.quad(t, x, tm.u, q, tm.qv, tm.Q, tm.r, tm.R, tm.P);
+    }
+    __syncwarp();
+
+    // The fold, in candidate_kernel's order: lane i < N owns row i of
+    // Ā = A + BL, q̄_vec = q_vec + Lᵀr and Q̄ = sym(Q + LᵀP + PᵀL + LᵀRL +
+    // μLᵀL); the lanes after them RL = R L first.
+    T row[N], out[N];
+    if (lane < N) {
+      rq::team::mm_row<T, N, M, N>(tm.Bm, tm.L, lane, row);
+#pragma unroll
+      for (int j = 0; j < N; ++j) tm.A[lane][j] = tm.A[lane][j] + row[j];
+      tm.qv[lane] = tm.qv[lane] + rq::team::mtv_at<T, M, N>(tm.L, tm.r, lane);
+    }
+    for (int i = lane - N; i >= 0 && i < M; i += Lanes - N) {
+      rq::team::mm_row<T, M, M, N>(tm.R, tm.L, i, row);
+#pragma unroll
+      for (int j = 0; j < N; ++j) tm.RL[i][j] = row[j];
+    }
+    __syncwarp();
+    if (lane < N) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = tm.Q[lane][j];
+      rq::team::mtm_row<T, M, N, N>(tm.L, tm.P, lane, row);   // LᵀP
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = out[j] + row[j];
+      rq::team::mtm_row<T, M, N, N>(tm.P, tm.L, lane, row);   // PᵀL
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = out[j] + row[j];
+      rq::team::mtm_row<T, M, N, N>(tm.L, tm.RL, lane, row);   // LᵀRL
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = out[j] + row[j];
+      rq::team::mtm_row<T, M, N, N>(tm.L, tm.L, lane, row);   // LᵀL
+#pragma unroll
+      for (int j = 0; j < N; ++j) tm.Q[lane][j] = out[j] + mu * row[j];
+    }
+    __syncwarp();
+    rq::team::sym_inplace<T, N, Lanes>(lane, tm.Q);
+    rq::team::folded_step<T, N, Lanes>(lane, q, tm.qv, tm.Q, tm.A, sm.W, sm.Wi, sm.ldW, theta,
+                                       s, tm.sv, tm.S, m_fail, tm.w);
+  }
+  if (live && lane == 0) {
+    static_cast<T*>(a.value)[b] = s;
+    a.m_fail[b] = m_fail;
+  }
+}
+
+// Dynamic shared memory of one team-kernel block (0: one solve per thread).
+template <typename T, template <typename> class Model>
+constexpr int team_smem_bytes() {
+  using Mod = Model<T>;
+  return Mod::N > rq::kUnrollMax ? int(sizeof(BlockSmem<T, Mod::N, Mod::M, kTeams>)) : 0;
+}
+
+// One solve per thread for the small models, whose working set fits in
+// registers; one solve per team of kTeamLanes lanes above kUnrollMax.
+template <typename T, template <typename> class Model>
+int launch(const CandidateArgs& a, cudaStream_t stream) {
+  if constexpr (Model<T>::N > rq::kUnrollMax) {
+    constexpr int bytes = team_smem_bytes<T, Model>();
+    const auto kernel = candidate_team_kernel<T, Model, kTeamLanes, kTeams>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    kernel<<<(a.B + kTeams - 1) / kTeams, kTeamLanes * kTeams, bytes, stream>>>(a);
+  } else {
+    const int threads = 128;
+    candidate_kernel<T, Model><<<(a.B + threads - 1) / threads, threads, 0, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 int dispatch(int model, const CandidateArgs& a, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (a.B + threads - 1) / threads;
-  if (model == rq::kUnicycle)
-    candidate_kernel<T, rq::Unicycle><<<blocks, threads, 0, stream>>>(a);
-  else if (model == rq::kLqr)
-    candidate_kernel<T, rq::Lqr><<<blocks, threads, 0, stream>>>(a);
-  else if (model == rq::kQuadrotor)
-    candidate_kernel<T, rq::Quadrotor><<<blocks, threads, 0, stream>>>(a);
-  else if (model == rq::kCartpole)
-    candidate_kernel<T, rq::Cartpole><<<blocks, threads, 0, stream>>>(a);
-  else
-    return -1;
-  return cudaGetLastError();
+  if (model == rq::kUnicycle) return launch<T, rq::Unicycle>(a, stream);
+  if (model == rq::kLqr) return launch<T, rq::Lqr>(a, stream);
+  if (model == rq::kQuadrotor) return launch<T, rq::Quadrotor>(a, stream);
+  if (model == rq::kCartpole) return launch<T, rq::Cartpole>(a, stream);
+  return -1;
 }
 
 }  // namespace
@@ -188,4 +408,18 @@ extern "C" int RQ_ENTRY(ratilqr_candidate)(int model, int B, int T, const double
                   theta, mu, x_scratch, value, static_cast<bool*>(m_fail)};
   for (int i = 0; i < rq::kMaxParams; ++i) a.p[i] = params[i];
   return dispatch<Real>(model, a, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a block of kernel C takes on `model` (0 for one
+// solve per thread, -1 for an unsupported model); its teams per block and
+// lanes per team.
+extern "C" int RQ_ENTRY(ratilqr_candidate_smem)(int model, int* teams_per_block,
+                                                int* lanes_per_team) {
+  *teams_per_block = kTeams;
+  *lanes_per_team = kTeamLanes;
+  if (model == rq::kUnicycle) return team_smem_bytes<Real, rq::Unicycle>();
+  if (model == rq::kLqr) return team_smem_bytes<Real, rq::Lqr>();
+  if (model == rq::kQuadrotor) return team_smem_bytes<Real, rq::Quadrotor>();
+  if (model == rq::kCartpole) return team_smem_bytes<Real, rq::Cartpole>();
+  return -1;
 }

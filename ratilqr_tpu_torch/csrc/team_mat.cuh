@@ -1,0 +1,258 @@
+// Small-matrix algebra for one solve per team of L lanes (half a warp or a
+// warp), on matrices in shared memory.
+//
+// The team counterpart of smallmat.cuh and of dp_step.cuh's folded_step:
+// the same formulas in the same operation order, spread over the lanes of
+// a team.  Lane i owns row i of every N×N product: it keeps the row's N
+// sums in registers, reads its own operand once per k and the other
+// operand's row k as a broadcast, and sums over k in the order
+// smallmat.cuh uses.  The Cholesky factor keeps lane i's row in
+// registers and passes each pivot and column round by shuffles; each lane
+// solves one right-hand side in registers.  So a team kernel and its
+// one-solve-per-thread twin differ only by fused multiply-adds.
+//
+// Conventions: every matrix argument is a reference to an array in shared
+// memory, `lane` is the calling thread's lane in its team (0..L−1), teams
+// never straddle a warp, and every lane of the warp calls every function
+// (the teams of one warp run the same steps).  The *_row helpers compute
+// one row into registers and do not synchronize; the team functions end
+// with __syncwarp(), so their outputs are visible to the whole team on
+// return.  Shared arrays are indexed at run time, register rows only by
+// unrolled loops: no array lives in a thread's stack frame.
+//
+// Build WITHOUT --use_fast_math, as smallmat.cuh says.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace rq {
+namespace team {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Row i of A B  (A: P×Q, B: Q×R), as smallmat.cuh:mm.
+template <typename T, int P, int Q, int R>
+__device__ __forceinline__ void mm_row(const T (&A)[P][Q], const T (&B)[Q][R], int i,
+                                       T (&out)[R]) {
+  const T a0 = A[i][0];
+#pragma unroll
+  for (int j = 0; j < R; ++j) out[j] = a0 * B[0][j];
+  for (int k = 1; k < Q; ++k) {
+    const T a = A[i][k];
+#pragma unroll
+    for (int j = 0; j < R; ++j) out[j] = out[j] + a * B[k][j];
+  }
+}
+
+// Row i of Aᵀ B  (A: Q×P, B: Q×R), as smallmat.cuh:mtm.
+template <typename T, int Q, int P, int R>
+__device__ __forceinline__ void mtm_row(const T (&A)[Q][P], const T (&B)[Q][R], int i,
+                                        T (&out)[R]) {
+  const T a0 = A[0][i];
+#pragma unroll
+  for (int j = 0; j < R; ++j) out[j] = a0 * B[0][j];
+  for (int k = 1; k < Q; ++k) {
+    const T a = A[k][i];
+#pragma unroll
+    for (int j = 0; j < R; ++j) out[j] = out[j] + a * B[k][j];
+  }
+}
+
+// (Aᵀ v)[i]  (A: Q×P), as smallmat.cuh:mtv.
+template <typename T, int Q, int P>
+__device__ __forceinline__ T mtv_at(const T (&A)[Q][P], const T (&v)[Q], int i) {
+  T acc = A[0][i] * v[0];
+  for (int k = 1; k < Q; ++k) acc = acc + A[k][i] * v[k];
+  return acc;
+}
+
+// M ← ½(M + Mᵀ); each pair (i < j) belongs to one lane.
+template <typename T, int N, int L>
+__device__ __forceinline__ void sym_inplace(int lane, T (&M)[N][N]) {
+  for (int e = lane; e < N * N; e += L) {
+    const int i = e / N, j = e % N;
+    if (i < j) {
+      const T v = T(0.5) * (M[i][j] + M[j][i]);
+      M[i][j] = v;
+      M[j][i] = v;
+    }
+  }
+  __syncwarp();
+}
+
+// Right-looking Cholesky with each lane's row in registers: lane i holds
+// row i of M (entries j ≤ i) in c and leaves row i of the factor there;
+// at step j the pivot and column j go round by shuffles.  Entry (i, j)
+// takes its updates L_ik L_jk in ascending k and then its division by the
+// pivot, the operations of smallmat.cuh:chol in its order (NaN entries
+// when M is not positive definite).  Returns whether every pivot is
+// finite and positive (smallmat.cuh:chol_ok), and the lane's own pivot in
+// `diag` (lanes i < N).
+template <typename T, int N, int L>
+__device__ __forceinline__ bool chol_rows(int lane, T (&c)[N], T& diag) {
+  static_assert(N <= L, "a team factors with one lane per row");
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const T pivot = sqrt(__shfl_sync(kFull, c[j], j, L));
+    ok = ok && isfinite(pivot) && (pivot > T(0));
+    diag = lane == j ? pivot : diag;
+    c[j] = lane == j ? pivot : c[j] / pivot;
+#pragma unroll
+    for (int k = j + 1; k < N; ++k) {
+      const T ckj = __shfl_sync(kFull, c[j], k, L);   // L_kj, from lane k
+      if (lane >= k) c[k] = c[k] - c[j] * ckj;
+    }
+  }
+  return ok;
+}
+
+// x ← M⁻¹x for one right-hand side in registers, from M's factor C, as
+// smallmat.cuh:cho_solve_vec: each row's sum runs over k in ascending
+// order and ends with a division by the pivot.  The forward substitution
+// goes column by column (the rows below a new entry update at once), the
+// back substitution row by row.
+template <typename T, int N>
+__device__ __forceinline__ void cho_solve_reg(const T (&C)[N][N], T (&x)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    x[k] = x[k] / C[k][k];
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) x[i] = x[i] - C[i][k] * x[k];
+  }
+  // The back substitution reads the factor again rather than keep its 78
+  // entries live in registers from the forward pass.
+  asm volatile("" ::: "memory");
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    T acc = x[i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k) acc = acc - C[k][i] * x[k];
+    x[i] = acc / C[i][i];
+  }
+}
+
+// log det M = 2 Σ log L_ii (smallmat.cuh:cho_logdet), from the logs of
+// the pivots, log_diag[i] = log L_ii, summed in order.
+template <typename T, int N>
+__device__ __forceinline__ T cho_logdet(const T (&log_diag)[N]) {
+  T acc = T(0);
+  for (int i = 0; i < N; ++i) acc = acc + log_diag[i];
+  return T(2) * acc;
+}
+
+// The team's working space for folded_step.  MS holds M's factor, then
+// DS; X holds M⁻¹S (D = I + θ(M⁻¹S)ᵀ is formed row by row from it), then
+// AᵀDS.
+template <typename T, int N>
+struct FoldScratch {
+  T MS[N][N], X[N][N];
+  T Dsv[N], Minv_sv[N], AtDsv[N], log_diag[N];
+};
+
+// The risk term added to s (dp_step.cuh:risk_term), on one lane: θ = 0 →
+// ½ tr(W S); θ > 0 → θ/2 s⃗ᵀM⁻¹s⃗ − (logdet W + logdet M)/(2θ).  Only the
+// branch that is returned is computed.
+template <typename T, int N>
+__device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)[N][N],
+                                       const T (&sv)[N], const T (&Minv_sv)[N],
+                                       const T (&log_diag)[N], T ldW) {
+  if (theta == T(0)) {
+    T tr = T(0);
+    for (int i = 0; i < N; ++i)
+      for (int j = 0; j < N; ++j) tr = tr + W[i][j] * S[j][i];
+    return T(0.5) * tr;
+  }
+  T d = sv[0] * Minv_sv[0];
+  for (int k = 1; k < N; ++k) d = d + sv[k] * Minv_sv[k];
+  return T(0.5) * theta * d - (ldW + cho_logdet<T, N>(log_diag)) / (T(2) * theta);
+}
+
+// M = sym(W⁻¹ − θS) and its factor in w.MS, M⁻¹S in w.X, and M⁻¹s⃗ and
+// the pivots' logs for the risk term (dp_step.cuh:m_factor).  Returns
+// whether M is positive definite (the same on every lane).
+template <typename T, int N, int L>
+__device__ __forceinline__ bool m_factor(int lane, T theta, const T (&Wi)[N][N],
+                                         const T (&S)[N][N], const T (&sv)[N],
+                                         FoldScratch<T, N>& w) {
+  static_assert(N < L, "M⁻¹s⃗ takes the lane after the last column");
+  const int i = lane < N ? lane : N - 1;   // lanes past the rows factor a copy
+  T c[N], diag = T(1);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {   // row i of sym(W⁻¹ − θS), j ≤ i
+    const T mij = Wi[i][j] - theta * S[i][j];
+    c[j] = j < i ? T(0.5) * (mij + (Wi[j][i] - theta * S[j][i])) : mij;
+  }
+  const bool ok = chol_rows<T, N, L>(lane, c, diag);
+  if (lane < N) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j <= lane) w.MS[lane][j] = c[j];
+  }
+  __syncwarp();
+  if (lane <= N) {   // lane j < N: column j of M⁻¹S; lane N: M⁻¹s⃗
+    const T* b = lane < N ? &S[0][lane] : sv;
+    T* out = lane < N ? &w.X[0][lane] : w.Minv_sv;
+    const int stride = lane < N ? N : 1;
+    T x[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) x[r] = b[r * stride];
+    cho_solve_reg<T, N>(w.MS, x);
+#pragma unroll
+    for (int r = 0; r < N; ++r) out[r * stride] = x[r];
+  }
+  if (lane < N) w.log_diag[lane] = log(diag);
+  __syncwarp();
+  return ok;
+}
+
+// Evaluating step over the closed-loop fold (q, q̄_vec, Q̄, Ā), as
+// dp_step.cuh:folded_step: the carry (s, s⃗, S) holds time t+1 on entry and
+// time t on exit; m_fail latches on any failed M.  s and q are read and
+// written on lane 0 only.  Q̄ must be symmetric already.
+template <typename T, int N, int L>
+__device__ __forceinline__ void folded_step(int lane, T q, const T (&qv)[N], const T (&Q)[N][N],
+                                            const T (&A)[N][N], const T (&W)[N][N],
+                                            const T (&Wi)[N][N], T ldW, T theta, T& s,
+                                            T (&sv)[N], T (&S)[N][N], bool& m_fail,
+                                            FoldScratch<T, N>& w) {
+  if (!m_factor<T, N, L>(lane, theta, Wi, S, sv, w)) m_fail = true;
+  T row[N];
+  if (lane < N) {   // row i of DS = D S (into MS) and (D s⃗)_i, D_ik = δ_ik + θ (M⁻¹S)_ki
+    const int i = lane;
+    T d = (i == 0 ? T(1) : T(0)) + theta * w.X[0][i];
+    T dsv = d * sv[0];
+#pragma unroll
+    for (int j = 0; j < N; ++j) row[j] = d * S[0][j];
+    for (int k = 1; k < N; ++k) {
+      d = (i == k ? T(1) : T(0)) + theta * w.X[k][i];
+      dsv = dsv + d * sv[k];
+#pragma unroll
+      for (int j = 0; j < N; ++j) row[j] = row[j] + d * S[k][j];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) w.MS[i][j] = row[j];
+    w.Dsv[i] = dsv;
+  }
+  __syncwarp();
+  if (lane == 0) s = q + s + risk_term<T, N>(theta, W, S, sv, w.Minv_sv, w.log_diag, ldW);
+  if (lane < N) {   // row i of AᵀDS (into X) and (AᵀDs⃗)_i
+    mtm_row<T, N, N, N>(A, w.MS, lane, row);
+#pragma unroll
+    for (int j = 0; j < N; ++j) w.X[lane][j] = row[j];
+    w.AtDsv[lane] = mtv_at<T, N, N>(A, w.Dsv, lane);
+  }
+  __syncwarp();
+  if (lane < N) {   // S ← Q̄ + AᵀDSĀ, s⃗ ← q̄ + AᵀDs⃗
+    mm_row<T, N, N, N>(w.X, A, lane, row);
+#pragma unroll
+    for (int j = 0; j < N; ++j) S[lane][j] = Q[lane][j] + row[j];
+    sv[lane] = qv[lane] + w.AtDsv[lane];
+  }
+  __syncwarp();
+  sym_inplace<T, N, L>(lane, S);
+}
+
+}  // namespace team
+}  // namespace rq

@@ -228,7 +228,11 @@ struct Cartpole {
 // yaw, body rates), control (thrust offset, three torques); parameters
 // (dt, grav, goal_x, goal_y, goal_z).  Only the acceleration rows are
 // nonlinear; the dense blocks are written in full, as the Pallas tile model
-// does (exploiting the sparsity is later work).
+// does (exploiting the sparsity is later work).  Its loops unroll in full
+// and its functions inline: dx stays in registers and every block entry
+// is one store at a fixed offset, whether the blocks are a thread's arrays
+// (step.cu) or a team's shared memory (candidate.cu, where one lane calls
+// the model).
 template <typename T>
 struct Quadrotor {
   static constexpr int N = 12;
@@ -238,7 +242,7 @@ struct Quadrotor {
   __device__ explicit Quadrotor(const Params& p)
       : dt(T(p[0])), dt20(T(p[0] * 20.0)), grav(T(p[1])), goal{T(p[2]), T(p[3]), T(p[4])} {}
 
-  __device__ void f(const T (&x)[N], const T (&u)[M], T (&xn)[N]) const {
+  __device__ __forceinline__ void f(const T (&x)[N], const T (&u)[M], T (&xn)[N]) const {
     const T sph = sin(x[6]), cph = cos(x[6]), sth = sin(x[7]), cth = cos(x[7]);
     const T thrust = grav + u[0];
     const T acc[3] = {thrust * sth, -thrust * sph * cth, thrust * cph * cth - grav};
@@ -251,14 +255,14 @@ struct Quadrotor {
     }
   }
 
-  __device__ void jac(const T (&x)[N], const T (&u)[M], T (&A)[N][N], T (&B)[N][M]) const {
+  __device__ __forceinline__ void jac(const T (&x)[N], const T (&u)[M], T (&A)[N][N], T (&B)[N][M]) const {
     const T sph = sin(x[6]), cph = cos(x[6]), sth = sin(x[7]), cth = cos(x[7]);
     const T thrust = grav + u[0];
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 0; i < N; ++i) {
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
       for (int j = 0; j < N; ++j) A[i][j] = (i == j) ? T(1) : T(0);
-#pragma unroll (rq::Unroll<M>::value)
+#pragma unroll
       for (int j = 0; j < M; ++j) B[i][j] = T(0);
     }
 #pragma unroll
@@ -278,50 +282,50 @@ struct Quadrotor {
     B[5][0] = dt * cph * cth;
   }
 
-  __device__ void delta(const T (&x)[N], T (&dx)[N]) const {
+  __device__ __forceinline__ void delta(const T (&x)[N], T (&dx)[N]) const {
 #pragma unroll
     for (int i = 0; i < 3; ++i) dx[i] = x[i] - goal[i];
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 3; i < N; ++i) dx[i] = x[i];
   }
 
-  __device__ void quad(int, const T (&x)[N], const T (&u)[M], T& q, T (&qv)[N], T (&Q)[N][N],
+  __device__ __forceinline__ void quad(int, const T (&x)[N], const T (&u)[M], T& q, T (&qv)[N], T (&Q)[N][N],
                        T (&r)[M], T (&R)[M][M], T (&P)[M][N]) const {
     T dx[N];
     delta(x, dx);
     T sx = dx[0] * dx[0], su = u[0] * u[0];
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 1; i < N; ++i) sx = sx + dx[i] * dx[i];
-#pragma unroll (rq::Unroll<M>::value)
+#pragma unroll
     for (int i = 1; i < M; ++i) su = su + u[i] * u[i];
     q = T(0.05) * sx + T(0.1) * su;
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 0; i < N; ++i) {
       qv[i] = T(0.1) * dx[i];
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
       for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? T(0.1) : T(0);
     }
-#pragma unroll (rq::Unroll<M>::value)
+#pragma unroll
     for (int i = 0; i < M; ++i) {
       r[i] = T(0.2) * u[i];
-#pragma unroll (rq::Unroll<M>::value)
+#pragma unroll
       for (int j = 0; j < M; ++j) R[i][j] = (i == j) ? T(0.2) : T(0);
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
       for (int j = 0; j < N; ++j) P[i][j] = T(0);
     }
   }
 
-  __device__ void term(const T (&x)[N], T& q, T (&qv)[N], T (&Q)[N][N]) const {
+  __device__ __forceinline__ void term(const T (&x)[N], T& q, T (&qv)[N], T (&Q)[N][N]) const {
     T dx[N];
     delta(x, dx);
     T sx = dx[0] * dx[0];
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 1; i < N; ++i) sx = sx + dx[i] * dx[i];
     q = T(20) * sx;
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 0; i < N; ++i) {
       qv[i] = T(40) * dx[i];
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
       for (int j = 0; j < N; ++j) Q[i][j] = (i == j) ? T(40) : T(0);
     }
   }

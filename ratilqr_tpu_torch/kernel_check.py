@@ -376,7 +376,8 @@ def candidate_inputs(model: str, T: int, B: int, dtype, device, seed=2):
 
 def check_candidate(model: str, T: int, B: int, dtype, device
                     ) -> Tuple[float, float]:
-    """Kernel C against :func:`candidate_bank_plain`."""
+    """Kernel C against :func:`candidate_bank_plain`; every θ = 1e6 lane
+    must latch m_fail."""
     args = candidate_inputs(model, T, B, dtype, device)
     got = candidate_bank(*args)
     want = candidate_bank_plain(*args)
@@ -384,7 +385,10 @@ def check_candidate(model: str, T: int, B: int, dtype, device
     if dtype == torch.float32:
         prob64, noise64 = _problem64(model, T, device)
         ref = candidate_bank_plain(prob64, *map(_f64, args[1:-1]), noise64)
-    return _compare(got, want, ref, args[5], [("value", "value")], dtype)
+    out = _compare(got, want, ref, args[5], [("value", "value")], dtype)
+    if not bool(want.m_fail[args[5] == 1e6].all()):
+        raise AssertionError("a θ = 1e6 lane did not latch m_fail")
+    return out
 
 
 def folded_inputs(model: str, T: int, B: int, dtype, device,

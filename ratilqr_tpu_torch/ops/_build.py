@@ -210,6 +210,7 @@ _SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
     "ratilqr_riccati": [_I] * 8 + [_P] * 18 + [_P] * 11 + [_P],
     "ratilqr_step": [_I] * 3 + [_PARAMS] + [_P] * 7 + [_P] * 6 + [_P],
     "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
+    "ratilqr_candidate_smem": [_I] + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_riccati_folded": [_I] * 4 + [_P] * 11 + [_P] * 2 + [_P],
 }
 

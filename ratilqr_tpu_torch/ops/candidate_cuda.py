@@ -1,7 +1,10 @@
 """Kernel C wrapper: one fused line-search trial on CUDA.
 
 Counterpart of :mod:`ratilqr_tpu.ops.candidate_pallas` (both its stored and
-its recompute variant, which compute the same value).
+its recompute variant, which compute the same value).  The kernel runs one
+solve per thread on the small models and one solve per team of 16 lanes
+on the quadrotor (``csrc/candidate.cu``); the wrapper is the same for
+both.
 :func:`candidate_bank` launches ``csrc/candidate.cu`` for a bank on a CUDA
 device and runs :func:`candidate_bank_plain` — ``approximate_folded``
 followed by the folded evaluating core (``candidate_pallas.py:427-432``) —
@@ -11,7 +14,8 @@ folded path without a tile model (``candidate_pallas.py:442-458``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -91,15 +95,30 @@ def candidate_layout(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
     return tm, ins
 
 
-def launch_candidate(tm, ins) -> CandidateOut:
-    """Launch kernel C on arguments prepared by :func:`candidate_layout`."""
+def block_shared_memory(model_id: int, dtype) -> Tuple[int, int, int]:
+    """``(bytes, teams, lanes)``: the dynamic shared memory a block of
+    kernel C takes on a device model (0 where it runs one solve per
+    thread; one solve per team of ``lanes`` threads above ``kUnrollMax``,
+    the quadrotor), its teams per block and lanes per team.  Builds the
+    library if needed."""
+    teams, lanes = ctypes.c_int(), ctypes.c_int()
+    nbytes = _build.entry("candidate_smem", dtype)(
+        model_id, ctypes.byref(teams), ctypes.byref(lanes))
+    _build.check(nbytes if nbytes < 0 else 0, KERNEL)
+    return nbytes, teams.value, lanes.value
+
+
+def launch_candidate(tm, ins, entry=None) -> CandidateOut:
+    """Launch kernel C on arguments prepared by :func:`candidate_layout`;
+    ``entry`` is another build's C entry point of the same type (the
+    shipped library's by default)."""
     (T1, n, Bn), T = ins[0].shape, ins[1].shape[0]
     dtype, device = ins[0].dtype, ins[0].device
     x_scratch = torch.empty((T1, n, Bn), dtype=dtype, device=device)
     value = torch.empty(Bn, dtype=dtype, device=device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
-    launch = _build.entry(KERNEL, dtype)
+    launch = entry or _build.entry(KERNEL, dtype)
     with torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
                     *map(_build.ptr, (x_scratch, value, m_fail)),

@@ -1,0 +1,108 @@
+"""Time kernel C's one-solve-per-team design in other team shapes.
+
+Builds ``csrc/candidate.cu`` once per variant and working type with
+``-DRQ_TEAM_LANES`` (lanes per team) and ``-DRQ_TEAMS`` (teams per
+block), every unit in its own ``nvcc``, all started together; prints each
+variant's registers, spills, stack frame and shared memory a block; then
+times each variant's launch alone (median of 5, CUDA events) on the
+quadrotor at T=50 — float32 at B=16,384 and 262,144, float64 at 16,384 —
+in two passes, the variants in order and then in reverse, and checks that
+each gives the shipped kernel's values and fail flags.
+
+Run on a machine with a CUDA card, from the repository root:
+``python -m ratilqr_tpu_torch.team_sweep``.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import sys
+import time
+
+import torch
+
+from ratilqr_tpu_torch import kernel_check
+from ratilqr_tpu_torch.ops import _build, candidate_cuda, tile_model
+
+# (lanes per team, teams per block); the first is shipped.
+VARIANTS = ((16, 8), (16, 4), (16, 16), (32, 8), (32, 4))
+T = 50
+WIDTHS = {torch.float32: (16_384, 262_144), torch.float64: (16_384,)}
+
+
+def _build_variant(variant, suffix):
+    lanes, teams = variant
+    out_dir = (_build.BUILD_DIR / _build.source_hash()
+               / f"team_{lanes}x{teams}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"libcandidate_{suffix}.so"
+    proc, secs = _build._run([
+        _build._nvcc(), *_build.CODEGEN_FLAGS, *_build.LINK_FLAGS,
+        f"-DRQ_DTYPE={_build._SUFFIXES.index(suffix)}",
+        f"-DRQ_TEAM_LANES={lanes}", f"-DRQ_TEAMS={teams}", "-o", str(lib),
+        str(_build.CSRC_DIR / "candidate.cu")])
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {variant} ({suffix}):\n"
+                           f"{proc.stderr[-3000:]}")
+    rows = [r for r in _build.ptxas_report(proc.stdout + proc.stderr)
+            if "candidate_team_kernel" in r[0]]
+    return _build._bind(ctypes.CDLL(str(lib)), (suffix,)), rows, secs
+
+
+def _same(a, b) -> bool:
+    return bool(torch.equal(a.value.nan_to_num(), b.value.nan_to_num())
+                and torch.equal(a.m_fail, b.m_fail))
+
+
+def sweep(device) -> None:
+    units = [(v, s) for v in VARIANTS for s in ("f32", "f64")]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        built = dict(zip(units, pool.map(lambda u: _build_variant(*u),
+                                         units)))
+    print(f"team sweep: built {len(units)} units in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    entries = {}
+    for (variant, suffix), (lib, rows, secs) in built.items():
+        entries[variant, suffix] = getattr(lib, f"ratilqr_candidate_{suffix}")
+        teams, lanes = ctypes.c_int(), ctypes.c_int()
+        nbytes = getattr(lib, f"ratilqr_candidate_smem_{suffix}")(
+            tile_model.QUADROTOR, ctypes.byref(teams), ctypes.byref(lanes))
+        for _, regs, stores, _, stack in rows:
+            print(f"team sweep {variant} {suffix}: {regs} registers, "
+                  f"{stores} B spill stores, {stack} B stack frame, "
+                  f"{nbytes} B shared memory a block ({secs:.1f} s nvcc)",
+                  flush=True)
+    for dtype, widths in WIDTHS.items():
+        suffix = _build.dtype_suffix(dtype)
+        for B in widths:
+            case = kernel_check.timing_cases("quadrotor", T, B, dtype,
+                                             device)["candidate"]()
+            tm, ins = case[1]()
+            shipped = candidate_cuda.launch_candidate(tm, ins)
+            times = {}
+            for variant in VARIANTS + VARIANTS[::-1]:
+                entry = entries[variant, suffix]
+                out = candidate_cuda.launch_candidate(tm, ins, entry)
+                times.setdefault(variant, []).append(kernel_check.time_ms(
+                    lambda: candidate_cuda.launch_candidate(tm, ins, entry)))
+                if len(times[variant]) == 2:
+                    print(f"team sweep {dtype} B={B} (lanes, teams) "
+                          f"{variant}: launch alone "
+                          f"{times[variant][0]:.3f} / {times[variant][1]:.3f}"
+                          f" ms (two passes); shipped values and flags: "
+                          f"{_same(out, shipped)}", flush=True)
+            del case, tm, ins, shipped
+            torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("team_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    sweep(torch.device("cuda", 0))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

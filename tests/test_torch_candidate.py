@@ -102,3 +102,15 @@ def test_plain_candidate_matches_folded_xla_f64(maker, n, m):
     np.testing.assert_array_equal(fail.numpy(), got.m_fail.numpy())
     np.testing.assert_allclose(value.numpy()[ok], got.value.numpy()[ok],
                                rtol=1e-10)
+
+
+def test_team_sweep_needs_a_card_and_whole_warps(monkeypatch):
+    """``python -m ratilqr_tpu_torch.team_sweep`` exits 1 without a card;
+    every team shape it builds fills whole warps, as candidate.cu's
+    static_assert demands."""
+    from ratilqr_tpu_torch import team_sweep
+    for lanes, teams in team_sweep.VARIANTS:
+        assert 32 % lanes == 0 and lanes * teams % 32 == 0
+        assert lanes > 12   # a lane per row of the quadrotor, and one more
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert team_sweep.main() == 1
