@@ -9,8 +9,8 @@ Phases (each prints a line and raises on failure):
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
-     and stack frame, and kernel C's one-solve-per-team kernel (the
-     quadrotor) with its shared memory a block; then builds kernel A at
+     and stack frame, and kernels B's and C's one-solve-per-team kernels
+     (the quadrotor) with their shared memory a block; then builds kernel A at
      (6, 3) and kernel D at n=6,
      shapes outside the shipped library, float32 and float64, and prints
      each unit's build time and ptxas report;
@@ -18,7 +18,9 @@ Phases (each prints a line and raises on failure):
      and float64, at the unicycle T=100, the LQR T=7, the quadrotor T=50
      and the cartpole T=50 with B=5 and B=4,099 (kernel D with a shared
      and a per-lane noise model), kernels A and D on the random linear
-     problem at (6, 3), T=20, and the θ = 1e6 lanes latching m_fail;
+     problem at (6, 3), T=20, kernel B on the n=12 h_fail fixture
+     (``kernel_check.H_FAIL``), the θ = 1e6 lanes latching m_fail and the
+     h_fail fixtures' lanes h_fail;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -51,7 +53,7 @@ Phases (each prints a line and raises on failure):
      on the CPU through the plain path;
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144), the
-     quadrotor (B=16,384; kernel C also at 262,144) and the cartpole
+     quadrotor (B=16,384; kernels B and C also at 262,144) and the cartpole
      (both); warm solves/s.
 The line before the card's name is the JSON kernel record; the last line
 is the JSON device record.
@@ -69,7 +71,7 @@ from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
                                RATiLQRSolver, kernel_check,
                                make_batched_solver)
 from ratilqr_tpu_torch.models import cartpole, quadrotor, unicycle
-from ratilqr_tpu_torch.ops import _build, candidate_cuda, tile_model
+from ratilqr_tpu_torch.ops import _build, tile_model
 from ratilqr_tpu_torch.solvers import ratilqr, ratilqr_jit
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
                                                 device_busy)
@@ -120,7 +122,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
 }
 DESIGNS = {   # how each kernel spreads a bank over the card
     "riccati": "one solve per thread",
-    "step": "one solve per thread",
+    "step": ("one solve per team of 16 lanes (two a warp, 8 a block, "
+             "working set in shared memory) at n=12, the quadrotor; one "
+             "solve per thread at n <= 4, the unicycle, LQR and the "
+             "cartpole"),
     "candidate": ("one solve per team of 16 lanes (two a warp, 8 a block, "
                   "working set in shared memory) at n=12, the quadrotor; one "
                   "solve per thread at n <= 4, the unicycle, LQR and the "
@@ -182,16 +187,19 @@ def build():
     for line in _build.report(lib_path):
         print("  " + line, flush=True)
     rows = _build.ptxas_report((lib_path.parent / "build.log").read_text())
-    for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
-        nbytes, teams, lanes = candidate_cuda.block_shared_memory(
-            tile_model.QUADROTOR, dtype)
-        for kernel, regs, stores, loads, stack in rows:   # demangled or not
-            if (f"candidate_team_kernel<{name}," in kernel
-                    or f"candidate_team_kernelI{name[0]}" in kernel):
-                print(f"kernel C, one solve per team (quadrotor, {dtype}): "
-                      f"{regs} registers, {stack} B stack frame, {stores} B "
-                      f"spill stores, {nbytes} B dynamic shared memory a "
-                      f"block of {teams} teams of {lanes} lanes", flush=True)
+    for label, kernel in (("B", "step"), ("C", "candidate")):
+        for dtype, name in ((torch.float32, "float"),
+                            (torch.float64, "double")):
+            nbytes, teams, lanes = _build.block_shared_memory(
+                kernel, tile_model.QUADROTOR, dtype)
+            entry = f"{kernel}_team_kernel"
+            for fn, regs, stores, loads, stack in rows:   # demangled or not
+                if f"{entry}<{name}," in fn or f"{entry}I{name[0]}" in fn:
+                    print(f"kernel {label}, one solve per team (quadrotor, "
+                          f"{dtype}): {regs} registers, {stack} B stack "
+                          f"frame, {stores} B spill stores, {nbytes} B "
+                          f"dynamic shared memory a block of {teams} teams "
+                          f"of {lanes} lanes", flush=True)
     units = [(kernel, shape, suffix)
              for kernel, shape in (("riccati", (6, 3)),
                                    ("riccati_folded", (6,)))
@@ -231,7 +239,8 @@ def check_kernels(device):
             for model, horizon in cases:
                 keep("candidate", kernel_check.check_candidate(
                     model, horizon, B, dtype, device))
-            for model, horizon in cases + [("negative_curvature", 7)]:
+            for model, horizon in cases + [("negative_curvature", 7),
+                                           (kernel_check.H_FAIL, QUAD_T)]:
                 keep("step", kernel_check.check_step(model, horizon, B, dtype,
                                                      device))
         f32 = dtype == torch.float32
@@ -259,6 +268,17 @@ def check_kernels(device):
     assert h_fail > 0, "the negative-curvature fixture must fail H"
     print(f"fail latching: {h_fail}/5 negative-curvature lanes latch h_fail",
           flush=True)
+    m_fail, h_fail = kernel_check.expect_fail_pattern(
+        kernel_check.H_FAIL, QUAD_T, 4_099, torch.float32, device)
+    mus = np.resize(kernel_check.H_FAIL_MU_MIX, 4_099)
+    expect = (int(np.sum(np.resize(kernel_check.THETA_MIX, 4_099) == 1e6)),
+              int(np.sum(mus == kernel_check.H_FAIL_MU)))
+    assert (m_fail, h_fail) == expect, (
+        f"n=12 h_fail fixture: (m_fail, h_fail) lanes {(m_fail, h_fail)}, "
+        f"expected {expect}")
+    print(f"fail latching, quadrotor (n=12) h_fail fixture: {h_fail} μ=-1e6 "
+          f"lanes of 4099 latch h_fail and {m_fail} θ=1e6 lanes m_fail in "
+          "kernel B", flush=True)
     return err32
 
 
@@ -660,15 +680,15 @@ def timings(device, name_power):
     wrapper, launch-alone and plain times and its bound."""
     f32 = torch.float32
     result = {}
-    # The kernel record's widths, and both for the cartpole and for kernel
-    # C on the quadrotor; the unicycle at B=16,384 and the other quadrotor
-    # kernels at 262,144 are left out to keep the run short (PERF.md keeps
-    # their last numbers).
+    # The kernel record's widths, and both for the cartpole and for kernels
+    # B and C on the quadrotor; the unicycle at B=16,384 and kernels A and D
+    # on the quadrotor at 262,144 are left out to keep the run short
+    # (PERF.md keeps their last numbers).
     every = ("riccati", "step", "candidate", "riccati_folded")
     for model, horizon, B, kernels in (
             ("unicycle", T, B_WIDE, every),
             ("quadrotor", QUAD_T, B_MAIN, every),
-            ("quadrotor", QUAD_T, B_WIDE, ("candidate",)),
+            ("quadrotor", QUAD_T, B_WIDE, ("step", "candidate")),
             ("cartpole", CART_T, B_MAIN, every),
             ("cartpole", CART_T, B_WIDE, every)):
         n, m = MODEL_DIMS[model]
@@ -707,7 +727,7 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
     the top level, the cartpole path (T=50, B=16,384, f32) under
     ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``
-    and, for kernel C, the quadrotor at B=262,144 under
+    and, for kernels B and C, the quadrotor at B=262,144 under
     ``"quadrotor_wide"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():

@@ -74,9 +74,13 @@
 #include "dp_step.cuh"
 #include "dtype.cuh"
 #include "team_mat.cuh"
+#include "team_stage.cuh"
 #include "tile_model.cuh"
 
 namespace {
+
+using rq::team::kTeamLanes;
+using rq::team::kTeams;
 
 struct CandidateArgs {
   int B, T;
@@ -185,20 +189,6 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
 
 // ---- One solve per team (N > rq::kUnrollMax: the quadrotor) ----
 
-// Lanes per team (16: half a warp; 32: a warp) and teams per block, each
-// team on one lane b.  -DRQ_TEAM_LANES=.. -DRQ_TEAMS=.. build other shapes
-// for python -m ratilqr_tpu_torch.team_sweep to time.
-#ifndef RQ_TEAM_LANES
-#define RQ_TEAM_LANES 16
-#endif
-#ifndef RQ_TEAMS
-#define RQ_TEAMS 8
-#endif
-constexpr int kTeamLanes = RQ_TEAM_LANES;
-constexpr int kTeams = RQ_TEAMS;
-static_assert(32 % kTeamLanes == 0 && kTeamLanes * kTeams % 32 == 0,
-              "teams fill whole warps and never straddle one");
-
 // One team's working set in shared memory: the carry (s⃗, S), the model
 // blocks and the fold (q̄, Q̄, Ā, P, R, r, B, RL = R·L), the staged x̄_t,
 // l_t, L_t and x_t, the policy's u and folded_step's scratch.
@@ -210,27 +200,8 @@ struct TeamSmem {
   T x[2][N], xr[N], qv[N], sv[N], l[M], u[M], r[M];
 };
 
-// A block's shared memory: W_t, W⁻¹_t and logdet W_t (the same for every
-// lane) and its K teams.
 template <typename T, int N, int M, int K>
-struct BlockSmem {
-  T W[N][N], Wi[N][N], ldW;
-  TeamSmem<T, N, M> team[K];
-};
-
-// Copy C entries per lane of step t of a lane-minor (·, C, B) array into
-// field `f` of each of the block's K teams: K consecutive lanes of one
-// entry are neighbours in memory, so the block reads them together.
-// Lanes past the bank read lane B − 1 (their teams store nothing).
-template <int C, typename T, typename Team, typename Field, int K>
-__device__ __forceinline__ void stage(const T* src, int t, int64_t B, int b0, Team (&teams)[K],
-                                      Field Team::*f) {
-  for (int idx = threadIdx.x; idx < C * K; idx += blockDim.x) {
-    const int k = idx % K, c = idx / K;
-    const int64_t b = b0 + k < B ? b0 + k : B - 1;
-    reinterpret_cast<T*>(&(teams[k].*f))[c] = src[(int64_t(t) * C + c) * B + b];
-  }
-}
+using BlockSmem = rq::team::BlockSmem<T, N, TeamSmem<T, N, M>, K>;
 
 // u = l_t + L_t (x − x̄_t) on lanes 0..M−1 (policy's arithmetic).
 template <typename T, int N, int M>
@@ -267,6 +238,7 @@ __global__ void __launch_bounds__(Lanes * K) candidate_team_kernel(const Candida
   const T* Lg = static_cast<const T*>(a.L);
   const T* Ws = static_cast<const T*>(a.W);
   const T* Wis = static_cast<const T*>(a.W_inv);
+  const T* ldWs = static_cast<const T*>(a.logdet_W);
   T* xs = static_cast<T*>(a.x_scratch);
 
   // Forward: closed-loop rollout from x̄_0, x_t ping-ponging in tm.x.
@@ -277,9 +249,9 @@ __global__ void __launch_bounds__(Lanes * K) candidate_team_kernel(const Candida
   int cur = 0;
   for (int t = 0; t < a.T; ++t) {
     __syncthreads();
-    stage<N>(xr, t, B, b0, sm.team, &Team::xr);
-    stage<M>(lc, t, B, b0, sm.team, &Team::l);
-    stage<M * N>(Lg, t, B, b0, sm.team, &Team::L);
+    rq::team::stage<N>(xr, t, B, b0, sm.team, &Team::xr);
+    rq::team::stage<M>(lc, t, B, b0, sm.team, &Team::l);
+    rq::team::stage<M * N>(Lg, t, B, b0, sm.team, &Team::L);
     __syncthreads();
     team_policy<T, N, M>(lane, tm, tm.x[cur]);
     if (lane == 0) model.f(tm.x[cur], tm.u, tm.x[1 - cur]);
@@ -296,15 +268,11 @@ __global__ void __launch_bounds__(Lanes * K) candidate_team_kernel(const Candida
   bool m_fail = false;
   for (int t = a.T - 1; t >= 0; --t) {
     __syncthreads();
-    stage<N>(xr, t, B, b0, sm.team, &Team::xr);
-    stage<M>(lc, t, B, b0, sm.team, &Team::l);
-    stage<M * N>(Lg, t, B, b0, sm.team, &Team::L);
-    stage<N>(xs, t, B, b0, sm.team, &Team::x);   // into x[0]
-    for (int idx = threadIdx.x; idx < N * N; idx += blockDim.x) {
-      (&sm.W[0][0])[idx] = Ws[int64_t(t) * N * N + idx];
-      (&sm.Wi[0][0])[idx] = Wis[int64_t(t) * N * N + idx];
-    }
-    if (threadIdx.x == 0) sm.ldW = static_cast<const T*>(a.logdet_W)[t];
+    rq::team::stage<N>(xr, t, B, b0, sm.team, &Team::xr);
+    rq::team::stage<M>(lc, t, B, b0, sm.team, &Team::l);
+    rq::team::stage<M * N>(Lg, t, B, b0, sm.team, &Team::L);
+    rq::team::stage<N>(xs, t, B, b0, sm.team, &Team::x);   // into x[0]
+    rq::team::stage_noise(sm, Ws, Wis, ldWs, t);
     __syncthreads();
     const T (&x)[N] = tm.x[0];
     team_policy<T, N, M>(lane, tm, x);

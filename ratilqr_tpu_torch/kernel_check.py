@@ -52,6 +52,13 @@ from ratilqr_tpu_torch.problems import RiskSensitiveProblem
 
 THETA_MIX = (0.0, 0.01, 0.05, 1e6, 0.02)   # the 1e6 lanes must fail M
 MU_MIX = (0.0, 0.0, 1e-3, 0.0, 1e-2)
+# The n=12 h_fail fixture: the quadrotor with THETA_MIX and this μ mix, so
+# every other θ = 0 lane carries μ = −1e6.  There H = R + BᵀDSB + μI fails
+# at the first backward step while M = W⁻¹ does not: those lanes must
+# latch h_fail and not m_fail, and the θ = 1e6 lanes m_fail.
+H_FAIL = "quadrotor_h_fail"
+H_FAIL_MU = -1e6
+H_FAIL_MU_MIX = (H_FAIL_MU, 0.0, 1e-3, 0.0, 1e-2, 0.0, 0.0, 1e-3, 0.0, 1e-2)
 
 TOL = {
     torch.float32: {"value": dict(rtol=3e-5, atol=0.0),
@@ -119,7 +126,8 @@ def model_dims(model: str, T: int = 1):
 
 
 def make_problem(model: str, T: int, dtype, device) -> RiskSensitiveProblem:
-    """``unicycle``, ``lqr``, ``cartpole``, ``quadrotor``, or
+    """``unicycle``, ``lqr``, ``cartpole``, ``quadrotor`` (also as
+    :data:`H_FAIL`, whose lanes differ only in μ), or
     ``negative_curvature`` — the restart- and h_fail-forcing fixture of
     tests/test_step_fused.py (control cost −0.05·u·u, terminal cost
     0.005·x·x), all with device models; or ``linear<n>x<m>``, the
@@ -132,7 +140,7 @@ def make_problem(model: str, T: int, dtype, device) -> RiskSensitiveProblem:
         return unicycle(N=T, dtype=dtype, device=device)
     if model == "cartpole":
         return cartpole(N=T, dtype=dtype, device=device)
-    if model == "quadrotor":
+    if model in ("quadrotor", H_FAIL):
         return quadrotor(N=T, dtype=dtype, device=device)
     if model == "lqr":
         return lqr_problem(N=T, noise=0.5, dtype=dtype, device=device)
@@ -170,7 +178,8 @@ def bank_inputs(model: str, T: int, B: int, dtype, device, seed: int = 0):
         mu = torch.zeros(B, dtype=dtype, device=device)
     else:
         theta = lane_mix(THETA_MIX, B, dtype, device)
-        mu = lane_mix(MU_MIX, B, dtype, device)
+        mu = lane_mix(H_FAIL_MU_MIX if model == H_FAIL else MU_MIX, B, dtype,
+                      device)
     return prob, x0, l, L, theta, mu, noise_model(prob, T, dtype, device)
 
 
@@ -348,12 +357,15 @@ def _problem64(model, T, device):
     return prob, noise_model(prob, T, torch.float64, device)
 
 
-def check_step(model: str, T: int, B: int, dtype, device
-               ) -> Tuple[float, float]:
-    """Kernel B against :func:`step_optimize_bank_plain`."""
+def check_step(model: str, T: int, B: int, dtype, device,
+               kernel: Callable = step_optimize_bank) -> Tuple[float, float]:
+    """Kernel B (``kernel``, of :func:`step_optimize_bank`'s signature)
+    against :func:`step_optimize_bank_plain`; every θ = 1e6 lane must latch
+    m_fail, and on :data:`H_FAIL` every μ = −1e6 lane h_fail and not
+    m_fail."""
     prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, B, dtype,
                                                    device, seed=1)
-    got = step_optimize_bank(prob, x0, l, theta, mu, noise)
+    got = kernel(prob, x0, l, theta, mu, noise)
     want = step_optimize_bank_plain(prob, x0, l, theta, mu, noise)
     ref = None
     if dtype == torch.float32:
@@ -362,7 +374,14 @@ def check_step(model: str, T: int, B: int, dtype, device
                                        noise64)
     fields = [("x", "traj"), ("value", "value"), ("L", "gain"),
               ("dl", "gain")]
-    return _compare(got, want, ref, theta, fields, dtype)
+    out = _compare(got, want, ref, theta, fields, dtype)
+    if not bool(want.m_fail[theta == 1e6].all()):
+        raise AssertionError("a θ = 1e6 lane did not latch m_fail")
+    forced = mu == H_FAIL_MU
+    if model == H_FAIL and not (bool(want.h_fail[forced].all())
+                                and not bool(want.m_fail[forced].any())):
+        raise AssertionError("a μ = −1e6 lane did not latch h_fail alone")
+    return out
 
 
 def candidate_inputs(model: str, T: int, B: int, dtype, device, seed=2):

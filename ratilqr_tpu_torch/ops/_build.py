@@ -209,6 +209,7 @@ _PARAMS = ctypes.POINTER(ctypes.c_double)   # host array of MAX_PARAMS
 _SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
     "ratilqr_riccati": [_I] * 8 + [_P] * 18 + [_P] * 11 + [_P],
     "ratilqr_step": [_I] * 3 + [_PARAMS] + [_P] * 7 + [_P] * 6 + [_P],
+    "ratilqr_step_smem": [_I] + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
     "ratilqr_candidate_smem": [_I] + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_riccati_folded": [_I] * 4 + [_P] * 11 + [_P] * 2 + [_P],
@@ -266,6 +267,19 @@ def check(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
                            f"cudaError {rc}")
+
+
+def block_shared_memory(kernel: str, model_id: int, dtype):
+    """``(bytes, teams, lanes)`` of kernel ``kernel`` (``"step"`` or
+    ``"candidate"``) on a device model: the dynamic shared memory a block
+    takes (0 where the kernel runs one solve per thread; one solve per team
+    of ``lanes`` threads above ``kUnrollMax``, the quadrotor), its teams per
+    block and lanes per team.  Builds the library if needed."""
+    teams, lanes = ctypes.c_int(), ctypes.c_int()
+    nbytes = entry(f"{kernel}_smem", dtype)(model_id, ctypes.byref(teams),
+                                            ctypes.byref(lanes))
+    check(nbytes if nbytes < 0 else 0, kernel)
+    return nbytes, teams.value, lanes.value
 
 
 def ptr(t) -> int | None:

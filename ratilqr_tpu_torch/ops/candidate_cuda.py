@@ -14,7 +14,6 @@ folded path without a tile model (``candidate_pallas.py:442-458``).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -96,16 +95,9 @@ def candidate_layout(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
 
 
 def block_shared_memory(model_id: int, dtype) -> Tuple[int, int, int]:
-    """``(bytes, teams, lanes)``: the dynamic shared memory a block of
-    kernel C takes on a device model (0 where it runs one solve per
-    thread; one solve per team of ``lanes`` threads above ``kUnrollMax``,
-    the quadrotor), its teams per block and lanes per team.  Builds the
-    library if needed."""
-    teams, lanes = ctypes.c_int(), ctypes.c_int()
-    nbytes = _build.entry("candidate_smem", dtype)(
-        model_id, ctypes.byref(teams), ctypes.byref(lanes))
-    _build.check(nbytes if nbytes < 0 else 0, KERNEL)
-    return nbytes, teams.value, lanes.value
+    """``(bytes, teams, lanes)`` of kernel C on a device model
+    (:func:`~ratilqr_tpu_torch.ops._build.block_shared_memory`)."""
+    return _build.block_shared_memory(KERNEL, model_id, dtype)
 
 
 def launch_candidate(tm, ins, entry=None) -> CandidateOut:

@@ -1,8 +1,11 @@
 """Kernel B wrapper: the fused step (rollout + quadratization + optimizing
 DP) on CUDA.
 
-Counterpart of :mod:`ratilqr_tpu.ops.step_pallas`.  :func:`step_optimize_bank`
-launches ``csrc/step.cu`` for a bank on a CUDA device and runs
+Counterpart of :mod:`ratilqr_tpu.ops.step_pallas`.  The kernel runs one
+solve per thread on the small models and one solve per team of 16 lanes on
+the quadrotor (``csrc/step.cu``); the wrapper is the same for both.
+:func:`step_optimize_bank` launches ``csrc/step.cu`` for a bank on a CUDA
+device and runs
 :func:`step_optimize_bank_plain` — open-loop rollout with Jacobians,
 ``approximate_model`` and the slim optimizing core, the JAX per-example
 semantics (``step_pallas.py:341-346``) — for a bank on the CPU.  A problem
@@ -13,7 +16,7 @@ with no tile model runs that composition with the Riccati dispatch
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -91,8 +94,16 @@ def step_layout(problem, x0: Tensor, l: Tensor, theta: Tensor, mu: Tensor,
     return tm, ins
 
 
-def launch_step(tm, ins) -> StepOut:
-    """Launch kernel B on arguments prepared by :func:`step_layout`."""
+def block_shared_memory(model_id: int, dtype) -> Tuple[int, int, int]:
+    """``(bytes, teams, lanes)`` of kernel B on a device model
+    (:func:`~ratilqr_tpu_torch.ops._build.block_shared_memory`)."""
+    return _build.block_shared_memory(KERNEL, model_id, dtype)
+
+
+def launch_step(tm, ins, entry=None) -> StepOut:
+    """Launch kernel B on arguments prepared by :func:`step_layout`;
+    ``entry`` is another build's C entry point of the same type (the
+    shipped library's by default)."""
     (T, m, Bn), n = ins[0].shape, tm.n
     dtype, device = ins[0].dtype, ins[0].device
     x = torch.empty((T + 1, n, Bn), dtype=dtype, device=device)
@@ -102,7 +113,7 @@ def launch_step(tm, ins) -> StepOut:
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     h_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
-    launch = _build.entry(KERNEL, dtype)
+    launch = entry or _build.entry(KERNEL, dtype)
     with torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
                     *map(_build.ptr, (x, value, L, dl, m_fail, h_fail)),

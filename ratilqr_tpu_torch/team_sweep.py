@@ -1,16 +1,19 @@
-"""Time kernel C's one-solve-per-team design in other team shapes.
+"""Time the one-solve-per-team design of kernel C (``candidate``) or B
+(``step``) in other team shapes.
 
-Builds ``csrc/candidate.cu`` once per variant and working type with
+Builds ``csrc/<kernel>.cu`` once per variant and working type with
 ``-DRQ_TEAM_LANES`` (lanes per team) and ``-DRQ_TEAMS`` (teams per
 block), every unit in its own ``nvcc``, all started together; prints each
 variant's registers, spills, stack frame and shared memory a block; then
 times each variant's launch alone (median of 5, CUDA events) on the
 quadrotor at T=50 — float32 at B=16,384 and 262,144, float64 at 16,384 —
 in two passes, the variants in order and then in reverse, and checks that
-each gives the shipped kernel's values and fail flags.
+each gives the shipped kernel's outputs (kernel C: value; kernel B: x,
+value, L, dl) and fail flags bit for bit.
 
 Run on a machine with a CUDA card, from the repository root:
-``python -m ratilqr_tpu_torch.team_sweep``.
+``python -m ratilqr_tpu_torch.team_sweep [candidate|step]`` (kernel C
+without an argument).
 """
 from __future__ import annotations
 
@@ -22,51 +25,54 @@ import time
 import torch
 
 from ratilqr_tpu_torch import kernel_check
-from ratilqr_tpu_torch.ops import _build, candidate_cuda, tile_model
+from ratilqr_tpu_torch.ops import _build, candidate_cuda, step_cuda, tile_model
 
 # (lanes per team, teams per block); the first is shipped.
 VARIANTS = ((16, 8), (16, 4), (16, 16), (32, 8), (32, 4))
 T = 50
 WIDTHS = {torch.float32: (16_384, 262_144), torch.float64: (16_384,)}
+LAUNCHES = {"candidate": candidate_cuda.launch_candidate,
+            "step": step_cuda.launch_step}
 
 
-def _build_variant(variant, suffix):
+def _build_variant(kernel, variant, suffix):
     lanes, teams = variant
     out_dir = (_build.BUILD_DIR / _build.source_hash()
-               / f"team_{lanes}x{teams}")
+               / f"team_{kernel}_{lanes}x{teams}")
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"libcandidate_{suffix}.so"
+    lib = out_dir / f"lib{kernel}_{suffix}.so"
     proc, secs = _build._run([
         _build._nvcc(), *_build.CODEGEN_FLAGS, *_build.LINK_FLAGS,
         f"-DRQ_DTYPE={_build._SUFFIXES.index(suffix)}",
         f"-DRQ_TEAM_LANES={lanes}", f"-DRQ_TEAMS={teams}", "-o", str(lib),
-        str(_build.CSRC_DIR / "candidate.cu")])
+        str(_build.CSRC_DIR / f"{kernel}.cu")])
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {variant} ({suffix}):\n"
                            f"{proc.stderr[-3000:]}")
     rows = [r for r in _build.ptxas_report(proc.stdout + proc.stderr)
-            if "candidate_team_kernel" in r[0]]
+            if f"{kernel}_team_kernel" in r[0]]
     return _build._bind(ctypes.CDLL(str(lib)), (suffix,)), rows, secs
 
 
 def _same(a, b) -> bool:
-    return bool(torch.equal(a.value.nan_to_num(), b.value.nan_to_num())
-                and torch.equal(a.m_fail, b.m_fail))
+    """Every output of two launches equal bit for bit (NaN equal to NaN)."""
+    return all(torch.equal(x.nan_to_num(), y.nan_to_num())
+               for x, y in zip(a, b))
 
 
-def sweep(device) -> None:
+def sweep(kernel, device) -> None:
     units = [(v, s) for v in VARIANTS for s in ("f32", "f64")]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
-        built = dict(zip(units, pool.map(lambda u: _build_variant(*u),
-                                         units)))
-    print(f"team sweep: built {len(units)} units in "
+        built = dict(zip(units, pool.map(
+            lambda u: _build_variant(kernel, *u), units)))
+    print(f"team sweep {kernel}: built {len(units)} units in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     entries = {}
     for (variant, suffix), (lib, rows, secs) in built.items():
-        entries[variant, suffix] = getattr(lib, f"ratilqr_candidate_{suffix}")
+        entries[variant, suffix] = getattr(lib, f"ratilqr_{kernel}_{suffix}")
         teams, lanes = ctypes.c_int(), ctypes.c_int()
-        nbytes = getattr(lib, f"ratilqr_candidate_smem_{suffix}")(
+        nbytes = getattr(lib, f"ratilqr_{kernel}_smem_{suffix}")(
             tile_model.QUADROTOR, ctypes.byref(teams), ctypes.byref(lanes))
         for _, regs, stores, _, stack in rows:
             print(f"team sweep {variant} {suffix}: {regs} registers, "
@@ -77,32 +83,38 @@ def sweep(device) -> None:
         suffix = _build.dtype_suffix(dtype)
         for B in widths:
             case = kernel_check.timing_cases("quadrotor", T, B, dtype,
-                                             device)["candidate"]()
+                                             device)[kernel]()
             tm, ins = case[1]()
-            shipped = candidate_cuda.launch_candidate(tm, ins)
+            launch = LAUNCHES[kernel]
+            shipped = launch(tm, ins)
             times = {}
             for variant in VARIANTS + VARIANTS[::-1]:
                 entry = entries[variant, suffix]
-                out = candidate_cuda.launch_candidate(tm, ins, entry)
+                out = launch(tm, ins, entry)
                 times.setdefault(variant, []).append(kernel_check.time_ms(
-                    lambda: candidate_cuda.launch_candidate(tm, ins, entry)))
+                    lambda: launch(tm, ins, entry)))
                 if len(times[variant]) == 2:
-                    print(f"team sweep {dtype} B={B} (lanes, teams) "
+                    print(f"team sweep {kernel} {dtype} B={B} (lanes, teams) "
                           f"{variant}: launch alone "
                           f"{times[variant][0]:.3f} / {times[variant][1]:.3f}"
-                          f" ms (two passes); shipped values and flags: "
+                          f" ms (two passes); shipped outputs and flags: "
                           f"{_same(out, shipped)}", flush=True)
             del case, tm, ins, shipped
             torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    kernel = argv[0] if argv else "candidate"
+    if kernel not in LAUNCHES or len(argv) > 1:
+        print(f"usage: python -m ratilqr_tpu_torch.team_sweep "
+              f"[{'|'.join(LAUNCHES)}]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("team_sweep: no CUDA device", file=sys.stderr)
         return 1
-    sweep(torch.device("cuda", 0))
+    sweep(kernel, torch.device("cuda", 0))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

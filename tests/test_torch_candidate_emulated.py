@@ -11,67 +11,26 @@ one-solve-per-thread kernel.  Tolerances are ``kernel_check``'s: float64
 within 1e-10, float32 within the JAX tolerances plus the per-θ drift
 rule, fail flags equal, every θ = 1e6 lane latched.  The card's own
 checks are ``tests/test_torch_cuda_kernels.py``; this file needs only a
-C++20 compiler (``g++``), and skips without one.
+C++20 compiler (``g++``), and skips without one
+(``tests/cuda_emulation/emulate.py`` builds the source).
 """
-import concurrent.futures
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from cuda_emulation.emulate import DTYPES, emulated_libraries  # noqa: E402
 from ratilqr_tpu_torch import kernel_check as kc  # noqa: E402
 from ratilqr_tpu_torch.ops import _build  # noqa: E402
 from ratilqr_tpu_torch.ops.candidate_cuda import (  # noqa: E402
     CandidateOut, candidate_bank_plain, candidate_layout)
 
-EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
-LAUNCH = re.compile(r"(\w[\w<>, ]*?)<<<([^,]*), ([^,]*), ([^,]*), ([^>]*)>>>"
-                    r"\((\w+)\);")
-DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _source(out_dir: Path) -> Path:
-    src = (_build.CSRC_DIR / "candidate.cu").read_text()
-    src, n = LAUNCH.subn(r"emulated_launch(\1, \2, \3, \6);", src)
-    assert n == 2, "candidate.cu launches two kernels"
-    src = src.replace("extern __shared__ __align__(16) unsigned char "
-                      "smem_raw[];", "")
-    path = out_dir / "candidate_emulated.cpp"
-    path.write_text(src)
-    return path
-
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler (g++) to emulate the kernel")
-    out_dir = tmp_path_factory.mktemp("kernel_c")
-    src = _source(out_dir)
-
-    def compile_one(code):
-        lib = out_dir / f"libcandidate_{code}.so"
-        proc = subprocess.run(
-            [cxx, "-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
-             f"-I{EMULATION}", f"-I{_build.CSRC_DIR}", f"-DRQ_DTYPE={code}",
-             "-o", str(lib), str(src)], capture_output=True, text=True)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        return lib
-
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(compile_one, (0, 1)))
-    entries = {}
-    for (dtype, suffix), lib in zip(DTYPES.items(), libs):
-        fn = getattr(ctypes.CDLL(str(lib)), f"ratilqr_candidate_{suffix}")
-        fn.argtypes = _build._SIGNATURES["ratilqr_candidate"]
-        fn.restype = ctypes.c_int
-        entries[dtype] = fn
-    return entries
+    libs = emulated_libraries("candidate.cu", 2,
+                              tmp_path_factory.mktemp("kernel_c"))
+    return {dtype: getattr(lib, f"ratilqr_candidate_{DTYPES[dtype]}")
+            for dtype, lib in libs.items()}
 
 
 def _run(entry, args) -> CandidateOut:

@@ -1,7 +1,8 @@
 """The four CUDA kernels against their plain PyTorch versions (unicycle,
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
-at its first use), kernel C's one-solve-per-warp design on the quadrotor
-at the edges of its blocks, the folded-evaluation bank against the fused-candidate
+at its first use), kernels B's and C's one-solve-per-team designs on the
+quadrotor at the edges of their blocks and B on the n=12 h_fail fixture,
+the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
 inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
 without one).
@@ -49,6 +50,44 @@ def test_riccati_kernel_matches_plain(device, model, T, B, variant, dtype):
                                        QUADROTOR, CARTPOLE])
 def test_step_kernel_matches_plain(device, model, T, B, dtype):
     kc.check_step(model, T, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 50])
+@pytest.mark.parametrize("B", [1, 8, 37, 4_099],
+                         ids=["lone-team", "one-block", "ragged", "wide"])
+def test_step_team_kernel_matches_plain(device, B, T, dtype):
+    """Kernel B's one-solve-per-team design on the quadrotor: a lone team,
+    a whole block of 8, a ragged last block and a wide bank, over one step
+    and the bank path's 50; x, value, L, dl, m_fail and h_fail.  θ from
+    ``THETA_MIX``, so the θ = 1e6 lanes latch m_fail (``check_step``
+    requires it)."""
+    kc.check_step("quadrotor", T, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [10, 4_099])
+def test_step_team_kernel_latches_h_fail(device, B, dtype):
+    """The n=12 h_fail fixture (``kernel_check.H_FAIL``): the μ = −1e6
+    lanes latch h_fail and not m_fail, the θ = 1e6 lanes m_fail, in
+    agreement with the plain version (``check_step`` holds all three)."""
+    kc.check_step(kc.H_FAIL, 50, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_step_design_follows_the_model(device, dtype):
+    """One solve per team, with its working set in dynamic shared memory,
+    on the quadrotor only; one solve per thread on the small models."""
+    from ratilqr_tpu_torch.ops import tile_model
+    from ratilqr_tpu_torch.ops.step_cuda import block_shared_memory
+    for model_id in (tile_model.UNICYCLE, tile_model.LQR,
+                     tile_model.CARTPOLE):
+        assert block_shared_memory(model_id, dtype)[0] == 0
+    nbytes, teams, lanes = block_shared_memory(tile_model.QUADROTOR, dtype)
+    assert lanes in (16, 32) and teams * lanes % 32 == 0
+    assert 0 < nbytes <= 232_448   # a block's limit on the H100
+    with pytest.raises(NotImplementedError):
+        block_shared_memory(99, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -7,7 +7,9 @@ against the JAX package's XLA composition (CPU, float64).
   - kernel A's plain version, ``_riccati_core`` optimizing and evaluating,
     against JAX ``_riccati_core`` (the θ = 1e6 lane must latch m_fail);
   - kernel B's plain version, ``step_optimize_bank_plain``, against the same
-    JAX composition, slim.
+    JAX composition, slim; and with μ = −1e6 on a θ = 0 lane (the n=12
+    h_fail fixture of ``kernel_check.H_FAIL``), its h_fail and m_fail lanes
+    against JAX's.
 
 T=8, B=6, rtol 1e-10.  The Pallas kernels in interpret mode are not the
 reference here: at n=12 they take a minute or more each on the CPU.
@@ -38,6 +40,8 @@ from test_torch_riccati import _compare_core, _perturbed_policy  # noqa: E402
 T, B = 8, 6
 THETAS = np.array([0.0, 0.002, 0.005, 0.01, 1e6, 0.0])
 MUS = np.array([0.0, 0.0, 1e-3, 0.0, 0.0, 1e-2])
+# Lane 0 (θ = 0) fails H and not M; lane 4 (θ = 1e6) fails M.
+MUS_H_FAIL = np.array([-1e6, 0.0, 1e-3, 0.0, 0.0, 1e-2])
 TOL = dict(rtol=1e-10, atol=1e-12)
 F64 = torch.float64
 
@@ -61,10 +65,14 @@ def jax_stack():
     return jax.jit(jax.vmap(make))(x0, u)
 
 
+# One compiled optimizing core for every μ mix of this file.
+_jax_optimize = jax.jit(jax.vmap(lambda a, th, mu: jric._riccati_core(
+    a, th, mu, None, None)))
+
+
 @pytest.fixture(scope="module")
 def jax_optimizing(jax_stack):
-    return jax.jit(jax.vmap(lambda a, th, mu: jric._riccati_core(
-        a, th, mu, None, None)))(jax_stack[1], THETAS, MUS)
+    return _jax_optimize(jax_stack[1], THETAS, MUS)
 
 
 def _port_stack():
@@ -123,6 +131,27 @@ def test_kernel_b_plain_matches_jax(jax_stack, jax_optimizing):
     ok = ~(np.asarray(m_fail) | np.asarray(h_fail))
     np.testing.assert_allclose(got.x.numpy(), np.asarray(jax_stack[0][0]),
                                **TOL)
+    np.testing.assert_allclose(got.value.numpy()[ok],
+                               np.asarray(dp.s)[ok, 0], **TOL)
+    np.testing.assert_allclose(got.L.numpy()[ok], np.asarray(L)[ok], **TOL)
+    np.testing.assert_allclose(got.dl.numpy()[ok], np.asarray(dl)[ok],
+                               **TOL)
+
+
+def test_kernel_b_plain_latches_h_fail_as_jax(jax_stack):
+    """μ = −1e6 at θ = 0 makes H negative definite while M = W⁻¹ is not:
+    the lane latches h_fail and not m_fail in both packages, and the other
+    lanes agree as in :func:`test_kernel_b_plain_matches_jax`."""
+    prob, x0, u, noise, _, _ = _port_stack()
+    got = step_optimize_bank_plain(prob, x0, u, torch.tensor(THETAS),
+                                   torch.tensor(MUS_H_FAIL), noise)
+    dp, L, dl, m_fail, h_fail = _jax_optimize(jax_stack[1], THETAS,
+                                              MUS_H_FAIL)
+    assert got.h_fail.tolist() == np.asarray(h_fail).tolist()
+    assert got.m_fail.tolist() == np.asarray(m_fail).tolist()
+    assert got.h_fail.tolist() == list(MUS_H_FAIL == -1e6)
+    assert got.m_fail.tolist() == list(THETAS == 1e6)
+    ok = ~(np.asarray(m_fail) | np.asarray(h_fail))
     np.testing.assert_allclose(got.value.numpy()[ok],
                                np.asarray(dp.s)[ok, 0], **TOL)
     np.testing.assert_allclose(got.L.numpy()[ok], np.asarray(L)[ok], **TOL)

@@ -5,7 +5,9 @@ JAX package.
     mode (T=7, B=5, a θ mix whose 1e6 lane must fail), with the
     tolerances of tests/test_step_fused.py;
   - float64 against JAX ``step_optimize`` (μ-restart loop included) on the
-    restart-forcing negative-curvature fixture of that file.
+    restart-forcing negative-curvature fixture of that file;
+  - ``python -m ratilqr_tpu_torch.team_sweep step``, which times kernel B's
+    team shapes, needs a card and takes only a kernel it knows.
 """
 import numpy as np
 import pytest
@@ -103,3 +105,15 @@ def test_step_optimize_restarts_match_jax_f64():
                           got[:6], want[:6]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
                                    atol=1e-12, err_msg=name)
+
+
+def test_team_sweep_takes_the_kernel(monkeypatch):
+    """``team_sweep step`` exits 1 without a card, an unknown kernel or a
+    second argument 2; every team shape has a lane for each of the
+    quadrotor's 12 rows of AᵀDS and 4 of BᵀDS (team_mat.cuh:dp_step)."""
+    from ratilqr_tpu_torch import team_sweep
+    assert all(lanes >= 12 + 4 for lanes, _ in team_sweep.VARIANTS)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert team_sweep.main(["step"]) == 1
+    assert team_sweep.main(["riccati"]) == 2
+    assert team_sweep.main(["step", "candidate"]) == 2
