@@ -9,18 +9,19 @@ Phases (each prints a line and raises on failure):
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
-     and stack frame, and kernels B's and C's one-solve-per-team kernels
-     (the quadrotor) with their shared memory a block; then builds kernel A at
-     (6, 3) and kernel D at n=6,
+     and stack frame, and kernels A's, B's and C's one-solve-per-team
+     kernels (the quadrotor) with their shared memory a block; then builds
+     kernel A at (6, 3) and kernel D at n=6,
      shapes outside the shipped library, float32 and float64, and prints
      each unit's build time and ptxas report;
   3. every kernel against its plain PyTorch version on the card, float32
      and float64, at the unicycle T=100, the LQR T=7, the quadrotor T=50
      and the cartpole T=50 with B=5 and B=4,099 (kernel D with a shared
      and a per-lane noise model), kernels A and D on the random linear
-     problem at (6, 3), T=20, kernel B on the n=12 h_fail fixture
-     (``kernel_check.H_FAIL``), the θ = 1e6 lanes latching m_fail and the
-     h_fail fixtures' lanes h_fail;
+     problem at (6, 3), T=20, kernels A and B on the n=12 h_fail fixture
+     (``kernel_check.H_FAIL``), kernel A's slim optimizing pass on the
+     quadrotor at B=262,144 in float32, the θ = 1e6 lanes latching m_fail
+     and the h_fail fixtures' lanes h_fail;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -53,8 +54,8 @@ Phases (each prints a line and raises on failure):
      on the CPU through the plain path;
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144), the
-     quadrotor (B=16,384; kernels B and C also at 262,144) and the cartpole
-     (both); warm solves/s.
+     quadrotor (B=16,384; kernels A, B and C also at 262,144) and the
+     cartpole (both); warm solves/s.
 The line before the card's name is the JSON kernel record; the last line
 is the JSON device record.
 """
@@ -71,7 +72,7 @@ from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
                                RATiLQRSolver, kernel_check,
                                make_batched_solver)
 from ratilqr_tpu_torch.models import cartpole, quadrotor, unicycle
-from ratilqr_tpu_torch.ops import _build, tile_model
+from ratilqr_tpu_torch.ops import _build, riccati_cuda, tile_model
 from ratilqr_tpu_torch.solvers import ratilqr, ratilqr_jit
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
                                                 device_busy)
@@ -121,7 +122,12 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                        "ratilqr_tpu/ops/riccati_pallas.py:581"),
 }
 DESIGNS = {   # how each kernel spreads a bank over the card
-    "riccati": "one solve per thread",
+    "riccati": ("one solve per team of 16 lanes (two a warp, 8 a block, "
+                "working set in shared memory, the next step's streamed "
+                "blocks double-buffered by cp.async) at (12, 4), the "
+                "quadrotor, and at first-use shapes a team takes (4 < n, "
+                "m <= 4, n + m <= 16), e.g. (6, 3); one solve per thread "
+                "otherwise: the unicycle, LQR and the cartpole"),
     "step": ("one solve per team of 16 lanes (two a warp, 8 a block, "
              "working set in shared memory) at n=12, the quadrotor; one "
              "solve per thread at n <= 4, the unicycle, LQR and the "
@@ -187,6 +193,22 @@ def build():
     for line in _build.report(lib_path):
         print("  " + line, flush=True)
     rows = _build.ptxas_report((lib_path.parent / "build.log").read_text())
+    for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
+        entry = "riccati_team_kernel"
+        for fn, regs, stores, loads, stack in rows:   # demangled or not
+            if f"{entry}<{name}," in fn or f"{entry}I{name[0]}" in fn:
+                print(f"kernel A, one solve per team ((12, 4), {dtype}) "
+                      f"{_build.short_name(fn)}: {regs} registers, {stack} B "
+                      f"stack frame, {stores} B spill stores", flush=True)
+        smem = {(opt, w): riccati_cuda.block_shared_memory(12, 4, dtype, opt,
+                                                            w)
+                for opt in (True, False) for w in (True, False)}
+        print(f"kernel A, one solve per team ((12, 4), {dtype}): dynamic "
+              "shared memory a block of {1} teams of {2} lanes: ".format(
+                  *smem[True, True])
+              + ", ".join(f"{'optimizing' if opt else 'evaluating'} "
+                          f"{'shared' if w else 'per-lane'} W {v[0]} B"
+                          for (opt, w), v in smem.items()), flush=True)
     for label, kernel in (("B", "step"), ("C", "candidate")):
         for dtype, name in ((torch.float32, "float"),
                             (torch.float64, "double")):
@@ -228,14 +250,16 @@ def check_kernels(device):
             worst[name] = tuple(map(max, worst[name], result))
 
         for B in (5, 4_099):
-            for model, horizon in cases + [(LINEAR, LINEAR_T)]:
+            for model, horizon in cases + [(LINEAR, LINEAR_T),
+                                           (kernel_check.H_FAIL, QUAD_T)]:
                 for variant in kernel_check.RICCATI_VARIANTS:
                     keep("riccati", kernel_check.check_riccati(
                         model, horizon, B, dtype, device, **variant))
+                kernel_check.clear_caches()
+            for model, horizon in cases + [(LINEAR, LINEAR_T)]:
                 for shared_w in (True, False):
                     keep("riccati_folded", kernel_check.check_riccati_folded(
                         model, horizon, B, dtype, device, shared_w))
-                kernel_check.clear_caches()
             for model, horizon in cases:
                 keep("candidate", kernel_check.check_candidate(
                     model, horizon, B, dtype, device))
@@ -244,9 +268,17 @@ def check_kernels(device):
                 keep("step", kernel_check.check_step(model, horizon, B, dtype,
                                                      device))
         f32 = dtype == torch.float32
+        if f32:
+            keep("riccati", kernel_check.check_riccati_wide(
+                "quadrotor", QUAD_T, B_WIDE, dtype, device))
+            kernel_check.clear_caches()
+            torch.cuda.empty_cache()
         print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7, "
-              f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D) and "
-              f"{LINEAR} T={LINEAR_T} (A, D), B=5 and B=4099, "
+              f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D), "
+              f"{LINEAR} T={LINEAR_T} (A, D) and the h_fail fixture (A, B), "
+              f"B=5 and B=4099"
+              + (f", A's slim optimizing pass on the quadrotor at B={B_WIDE}"
+                 if f32 else "") + ", "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
               "max |kernel - plain|"
               + (" (plain's own error vs float64)" if f32 else "") + ": "
@@ -279,6 +311,16 @@ def check_kernels(device):
     print(f"fail latching, quadrotor (n=12) h_fail fixture: {h_fail} μ=-1e6 "
           f"lanes of 4099 latch h_fail and {m_fail} θ=1e6 lanes m_fail in "
           "kernel B", flush=True)
+    m_fail, h_fail = kernel_check.expect_fail_pattern(
+        kernel_check.H_FAIL, QUAD_T, 4_099, torch.float32, device,
+        kernel="riccati")
+    kernel_check.clear_caches()
+    assert (m_fail, h_fail) == expect, (
+        f"n=12 h_fail fixture, kernel A: (m_fail, h_fail) lanes "
+        f"{(m_fail, h_fail)}, expected {expect}")
+    print(f"fail latching, quadrotor (n=12) h_fail fixture: {h_fail} μ=-1e6 "
+          f"lanes of 4099 latch h_fail and {m_fail} θ=1e6 lanes m_fail in "
+          "kernel A", flush=True)
     return err32
 
 
@@ -681,14 +723,14 @@ def timings(device, name_power):
     f32 = torch.float32
     result = {}
     # The kernel record's widths, and both for the cartpole and for kernels
-    # B and C on the quadrotor; the unicycle at B=16,384 and kernels A and D
-    # on the quadrotor at 262,144 are left out to keep the run short
-    # (PERF.md keeps their last numbers).
+    # A, B and C on the quadrotor; the unicycle at B=16,384 and kernel D on
+    # the quadrotor at 262,144 are left out to keep the run short (PERF.md
+    # keeps their last numbers).
     every = ("riccati", "step", "candidate", "riccati_folded")
     for model, horizon, B, kernels in (
             ("unicycle", T, B_WIDE, every),
             ("quadrotor", QUAD_T, B_MAIN, every),
-            ("quadrotor", QUAD_T, B_WIDE, ("step", "candidate")),
+            ("quadrotor", QUAD_T, B_WIDE, ("riccati", "step", "candidate")),
             ("cartpole", CART_T, B_MAIN, every),
             ("cartpole", CART_T, B_WIDE, every)):
         n, m = MODEL_DIMS[model]
@@ -727,7 +769,7 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
     the top level, the cartpole path (T=50, B=16,384, f32) under
     ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``
-    and, for kernels B and C, the quadrotor at B=262,144 under
+    and, for kernels A, B and C, the quadrotor at B=262,144 under
     ``"quadrotor_wide"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():

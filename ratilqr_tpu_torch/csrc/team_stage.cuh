@@ -1,5 +1,6 @@
 // Block-wide staging for the one-solve-per-team kernels (candidate.cu,
-// step.cu): a block holds K teams, team k on lane b0 + k of the bank.
+// step.cu, riccati.cu): a block holds K teams, team k on lane b0 + k of
+// the bank.
 //
 // Once per step the block copies what its teams need from lane-minor
 // (·, C, B) arrays into each team's shared memory in one pass, and writes
@@ -8,8 +9,16 @@
 // together (8 neighbouring lanes are one 32-byte sector in f32).  W_t,
 // W⁻¹_t and logdet W_t, the same for every lane, are staged once a block.
 // The caller puts a __syncthreads() before and after each pass.
+//
+// A staging pass may also be asynchronous (ASYNC): each word goes by
+// cp.async (__pipeline_memcpy_async), which moves it from device memory to
+// shared memory without holding a register, so the block can issue the
+// next step's loads and go on computing.  The caller then commits the
+// batch (__pipeline_commit) and, before the __syncthreads() that publishes
+// it, waits for it (__pipeline_wait_prior).
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,17 +60,35 @@ struct BlockSmem {
   Team team[K];
 };
 
-// Copy C entries per lane of step t of a lane-minor (·, C, B) array into
-// field `f` of each of the block's K teams.  Lanes past the bank read lane
-// B − 1 (their teams store nothing).
-template <int C, typename T, typename Team, typename Field, int K>
-__device__ __forceinline__ void stage(const T* src, int t, int64_t B, int b0, Team (&teams)[K],
-                                      Field Team::*f) {
+// One word from device memory into shared memory: a plain copy, or
+// (ASYNC) a cp.async of 4 or 8 bytes.
+template <bool ASYNC, typename T>
+__device__ __forceinline__ void copy_word(T* dst, const T* src) {
+  if constexpr (ASYNC)
+    __pipeline_memcpy_async(dst, src, sizeof(T));
+  else
+    *dst = *src;
+}
+
+// Copy C entries per lane of step t of a lane-minor (·, C, B) array to
+// dst(k)[0..C) for each of the block's K teams (dst(k): a T* into team k's
+// shared memory).  Lanes past the bank read lane B − 1 (their teams store
+// nothing).
+template <int C, int K, bool ASYNC = false, typename T, typename Dst>
+__device__ __forceinline__ void stage_into(const T* src, int t, int64_t B, int b0, Dst dst) {
   for (int idx = threadIdx.x; idx < C * K; idx += blockDim.x) {
     const int k = idx % K, c = idx / K;
     const int64_t b = b0 + k < B ? b0 + k : B - 1;
-    reinterpret_cast<T*>(&(teams[k].*f))[c] = src[(int64_t(t) * C + c) * B + b];
+    copy_word<ASYNC>(dst(k) + c, src + (int64_t(t) * C + c) * B + b);
   }
+}
+
+// stage_into field `f` of each team.
+template <int C, typename T, typename Team, typename Field, int K>
+__device__ __forceinline__ void stage(const T* src, int t, int64_t B, int b0, Team (&teams)[K],
+                                      Field Team::*f) {
+  stage_into<C, K>(src, t, B, b0,
+                   [&](int k) { return reinterpret_cast<T*>(&(teams[k].*f)); });
 }
 
 // The reverse of stage: C entries of field `f` of each team into step t
@@ -76,15 +103,28 @@ __device__ __forceinline__ void unstage(T* dst, int t, int64_t B, int b0, const 
   }
 }
 
-// W_t, W⁻¹_t ((T, N, N)) and logdet W_t ((T,)) into the block's copy.
+// Copy C consecutive words, the same for every lane, into the block's
+// shared memory.
+template <int C, bool ASYNC = false, typename T>
+__device__ __forceinline__ void stage_block(T* dst, const T* src) {
+  for (int idx = threadIdx.x; idx < C; idx += blockDim.x) copy_word<ASYNC>(dst + idx, src + idx);
+}
+
+// W_t, W⁻¹_t ((T, N, N)) and logdet W_t ((T,)) into one copy in shared
+// memory.
+template <int N, bool ASYNC = false, typename T>
+__device__ __forceinline__ void stage_noise(T (&W)[N][N], T (&Wi)[N][N], T& ldW, const T* Ws,
+                                            const T* Wis, const T* ldWs, int t) {
+  stage_block<N * N, ASYNC>(&W[0][0], Ws + int64_t(t) * N * N);
+  stage_block<N * N, ASYNC>(&Wi[0][0], Wis + int64_t(t) * N * N);
+  stage_block<1, ASYNC>(&ldW, ldWs + t);
+}
+
+// W_t, W⁻¹_t and logdet W_t into the block's copy.
 template <typename T, int N, typename Team, int K>
 __device__ __forceinline__ void stage_noise(BlockSmem<T, N, Team, K>& sm, const T* Ws,
                                             const T* Wis, const T* ldWs, int t) {
-  for (int idx = threadIdx.x; idx < N * N; idx += blockDim.x) {
-    (&sm.W[0][0])[idx] = Ws[int64_t(t) * N * N + idx];
-    (&sm.Wi[0][0])[idx] = Wis[int64_t(t) * N * N + idx];
-  }
-  if (threadIdx.x == 0) sm.ldW = ldWs[t];
+  stage_noise<N>(sm.W, sm.Wi, sm.ldW, Ws, Wis, ldWs, t);
 }
 
 }  // namespace team

@@ -328,10 +328,32 @@ def _slim(full, optimizing: bool):
     return BankSlim(full.value, L, dl, full.m_fail, full.h_fail)
 
 
+def _check_latching(model: str, want, theta, mu, h_fail: bool) -> None:
+    """Every θ = 1e6 lane latched m_fail; with ``h_fail``, on
+    :data:`H_FAIL` every μ = −1e6 lane latched h_fail and not m_fail."""
+    if not bool(want.m_fail[theta == 1e6].all()):
+        raise AssertionError("a θ = 1e6 lane did not latch m_fail")
+    forced = mu == H_FAIL_MU
+    if h_fail and model == H_FAIL and not (
+            bool(want.h_fail[forced].all())
+            and not bool(want.m_fail[forced].any())):
+        raise AssertionError("a μ = −1e6 lane did not latch h_fail alone")
+
+
+def _riccati_fields(optimizing: bool, slim: bool):
+    names = (("L", "dl") if (optimizing and slim) else () if slim else
+             ("s_vec", "S", "g", "G", "H", "L", "dl"))
+    return [("value", "value")] + [(name, "gain") for name in names]
+
+
 def check_riccati(model: str, T: int, B: int, dtype, device,
                   optimizing: bool, slim: bool, shared_w: bool,
-                  has_dl: bool) -> Tuple[float, float]:
-    """Kernel A against :func:`riccati_bank_plain` in one variant."""
+                  has_dl: bool, kernel: Callable = riccati_bank
+                  ) -> Tuple[float, float]:
+    """Kernel A (``kernel``, of :func:`riccati_bank`'s signature) against
+    :func:`riccati_bank_plain` in one variant; every θ = 1e6 lane must
+    latch m_fail, and on :data:`H_FAIL` the optimizing pass every
+    μ = −1e6 lane h_fail and not m_fail."""
     ap, _, _, theta, mu = _riccati_fixture(model, T, B, dtype, device,
                                            shared_w)
     L_in, dl_in, want, ref = _riccati_plain(model, T, B, dtype, device,
@@ -339,11 +361,40 @@ def check_riccati(model: str, T: int, B: int, dtype, device,
     if slim:
         want = _slim(want, optimizing)
         ref = None if ref is None else _slim(ref, optimizing)
-    got = riccati_bank(ap, theta, mu, L_in, dl_in, slim=slim)
-    names = (("L", "dl") if (optimizing and slim) else () if slim else
-             ("s_vec", "S", "g", "G", "H", "L", "dl"))
-    return _compare(got, want, ref, theta, [("value", "value")]
-                    + [(name, "gain") for name in names], dtype)
+    got = kernel(ap, theta, mu, L_in, dl_in, slim=slim)
+    out = _compare(got, want, ref, theta, _riccati_fields(optimizing, slim),
+                   dtype)
+    _check_latching(model, want, theta, mu, optimizing)
+    return out
+
+
+def check_riccati_wide(model: str, T: int, B: int, dtype, device
+                       ) -> Tuple[float, float]:
+    """Kernel A's slim optimizing pass on a bank of ``B`` lanes that
+    repeats the fixture's first ``TILE_BASE`` (as the timings do), against
+    the plain version on those lanes: lane i of the wide bank against
+    lane i mod ``TILE_BASE``.  The plain version and its float64 run
+    never hold the wide bank, which at the quadrotor's B=262,144 would not
+    fit the card beside the kernel's."""
+    base = min(B, TILE_BASE)
+    ap, _, _, theta, mu = _riccati_fixture(model, T, base, dtype, device,
+                                           True)
+    _, _, want, ref = _riccati_plain(model, T, base, dtype, device, True,
+                                     True, False)
+    got = riccati_bank(_widen(ap, B), _wide(theta, B), _wide(mu, B),
+                       slim=True)
+    lanes = torch.arange(B, device=got.value.device) % base
+
+    def wide(full):
+        return None if full is None else BankSlim(
+            *(x[lanes] for x in _slim(full, True)))
+
+    want = wide(want)
+    theta, mu = theta[lanes], mu[lanes]
+    out = _compare(got, want, wide(ref), theta, _riccati_fields(True, True),
+                   dtype)
+    _check_latching(model, want, theta, mu, True)
+    return out
 
 
 RICCATI_VARIANTS = [
@@ -375,12 +426,7 @@ def check_step(model: str, T: int, B: int, dtype, device,
     fields = [("x", "traj"), ("value", "value"), ("L", "gain"),
               ("dl", "gain")]
     out = _compare(got, want, ref, theta, fields, dtype)
-    if not bool(want.m_fail[theta == 1e6].all()):
-        raise AssertionError("a θ = 1e6 lane did not latch m_fail")
-    forced = mu == H_FAIL_MU
-    if model == H_FAIL and not (bool(want.h_fail[forced].all())
-                                and not bool(want.m_fail[forced].any())):
-        raise AssertionError("a μ = −1e6 lane did not latch h_fail alone")
+    _check_latching(model, want, theta, mu, True)
     return out
 
 
@@ -441,13 +487,19 @@ def check_riccati_folded(model: str, T: int, B: int, dtype, device,
     return out
 
 
-def expect_fail_pattern(model: str, T: int, B: int, dtype, device
-                        ) -> Tuple[int, int]:
-    """Counts of (m_fail, h_fail) lanes the step kernel reports, so a
-    caller can check that its fixture really fails where it should."""
-    prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, B, dtype,
-                                                   device, seed=1)
-    out = step_optimize_bank(prob, x0, l, theta, mu, noise)
+def expect_fail_pattern(model: str, T: int, B: int, dtype, device,
+                        kernel: str = "step") -> Tuple[int, int]:
+    """Counts of (m_fail, h_fail) lanes kernel B (``"step"``) or kernel A's
+    slim optimizing pass (``"riccati"``) reports, so a caller can check
+    that its fixture really fails where it should."""
+    if kernel == "riccati":
+        ap, _, _, theta, mu = _riccati_fixture(model, T, B, dtype, device,
+                                               True)
+        out = riccati_bank(ap, theta, mu, slim=True)
+    else:
+        prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, B, dtype,
+                                                       device, seed=1)
+        out = step_optimize_bank(prob, x0, l, theta, mu, noise)
     return int(out.m_fail.sum()), int(out.h_fail.sum())
 
 

@@ -208,6 +208,7 @@ _I = ctypes.c_int
 _PARAMS = ctypes.POINTER(ctypes.c_double)   # host array of MAX_PARAMS
 _SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
     "ratilqr_riccati": [_I] * 8 + [_P] * 18 + [_P] * 11 + [_P],
+    "ratilqr_riccati_smem": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_step": [_I] * 3 + [_PARAMS] + [_P] * 7 + [_P] * 6 + [_P],
     "ratilqr_step_smem": [_I] + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
@@ -250,23 +251,33 @@ def shape_library(kernel: str, shape: tuple, suffix: str) -> ctypes.CDLL:
                  (suffix,))
 
 
-def entry(kernel: str, dtype, shape: tuple = ()):
-    """The C entry point ``ratilqr_<kernel>_<f32|f64>``: from the shipped
-    library, or, given ``shape``, from the library built for that shape
-    alone."""
+def entry(kernel: str, dtype, shape: tuple = (), name: str = ""):
+    """The C entry point ``ratilqr_<kernel>_<f32|f64>`` (or, given
+    ``name``, ``ratilqr_<name>_<f32|f64>`` of the same source): from the
+    shipped library, or, given ``shape``, from the library built for that
+    shape alone."""
     suffix = dtype_suffix(dtype)
     lib = shape_library(kernel, tuple(shape), suffix) if shape else library()
-    return getattr(lib, f"ratilqr_{kernel}_{suffix}")
+    return getattr(lib, f"ratilqr_{name or kernel}_{suffix}")
 
 
-def check(rc: int, kernel: str) -> None:
-    """Raise on a refused or failed launch (``cudaGetLastError`` code)."""
+def short_name(fn: str) -> str:
+    """A kernel's name and template arguments from an entry function's
+    (demangled) name in a ptxas report."""
+    m = re.search(r"(\w+<[^()]*>)\(", fn)
+    return m.group(1) if m else fn
+
+
+def check(rc: int, kernel: str, detail: str = "") -> None:
+    """Raise on a refused or failed launch (``cudaGetLastError`` code);
+    ``detail`` is added to the message of a failed one."""
     if rc == -1:
         raise NotImplementedError(f"{kernel}: no kernel instantiated for "
                                   "this shape or model")
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
-                           f"cudaError {rc}")
+                           f"cudaError {rc}" + (f" ({detail})" if detail
+                                                else ""))
 
 
 def block_shared_memory(kernel: str, model_id: int, dtype):

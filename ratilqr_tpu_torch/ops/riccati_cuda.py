@@ -18,10 +18,16 @@ shape: the shipped library holds the shipped models' shapes (``SHAPES``,
 ``FOLDED_SHAPES``), and any other shape up to ``MAX_DIM`` is built at its
 first use (``_build.shape_library``).  Beyond ``MAX_DIM`` they raise
 before any build.
+
+Kernel A runs one solve per team of 16 lanes, its working set in shared
+memory, at the shapes a team takes (4 < n, m ≤ 4, n + m ≤ 16: the
+quadrotor, and e.g. (6, 3)), and one solve per thread at the others
+(:func:`block_shared_memory` says which).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -154,8 +160,33 @@ def riccati_layout(approx, theta: Tensor, mu: Tensor,
     return ins, (n, m, w_shared)
 
 
-def launch_riccati(ins, shape, slim: bool):
-    """Launch kernel A on arguments prepared by :func:`riccati_layout`."""
+def _entry(name: str, dtype, n: int, m: int):
+    """Kernel A's C entry point ``name`` at (n, m): from the shipped
+    library, or from the one built for (n, m) at its first use."""
+    return _build.entry(KERNEL, dtype, () if (n, m) in SHAPES else (n, m),
+                        name)
+
+
+def block_shared_memory(n: int, m: int, dtype, optimizing: bool = True,
+                        w_shared: bool = True) -> Tuple[int, int, int]:
+    """``(bytes, teams, lanes)`` of kernel A at (n, m) in one variant: the
+    dynamic shared memory a block takes (0 where the kernel runs one solve
+    per thread), its teams per block and lanes per team.  Builds the
+    library that holds (n, m) if needed."""
+    _check_dims(KERNEL, n, m)
+    teams, lanes = ctypes.c_int(), ctypes.c_int()
+    nbytes = _entry(f"{KERNEL}_smem", dtype, n, m)(
+        n, m, int(optimizing), int(w_shared), ctypes.byref(teams),
+        ctypes.byref(lanes))
+    _build.check(nbytes if nbytes < 0 else 0, KERNEL)
+    return nbytes, teams.value, lanes.value
+
+
+def launch_riccati(ins, shape, slim: bool, entry=None):
+    """Launch kernel A on arguments prepared by :func:`riccati_layout`;
+    ``entry`` is another build's C entry point of the same type (by
+    default the shipped library's, or the one built for the shape).  A
+    launch the card refuses raises, with the block's shared memory."""
     n, m, w_shared = shape
     (T, Bn), dtype, device = ins[0].shape, ins[0].dtype, ins[0].device
     optimizing, has_dl = ins[-2] is None, ins[-1] is not None
@@ -177,13 +208,14 @@ def launch_riccati(ins, shape, slim: bool):
     h_fail = empty(Bn, dt=torch.bool)
     outs = [value, s, s_vec, S, g, G, H, L, dl, m_fail, h_fail]
 
-    launch = _build.entry(KERNEL, dtype,
-                          () if (n, m) in SHAPES else (n, m))
+    launch = entry or _entry(KERNEL, dtype, n, m)
     with torch.cuda.device(device):
         rc = launch(n, m, Bn, T, int(optimizing), int(slim), int(w_shared),
                     int(has_dl), *map(_build.ptr, ins),
                     *map(_build.ptr, outs), _build.stream_of(value))
-    _build.check(rc, KERNEL)
+    _build.check(rc, KERNEL, "" if rc <= 0 else (
+        f"{block_shared_memory(n, m, dtype, optimizing, w_shared)[0]} B of "
+        "shared memory a block"))
     _build.launch_counts[KERNEL] += 1
 
     def back(x):

@@ -1,7 +1,8 @@
 """The four CUDA kernels against their plain PyTorch versions (unicycle,
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
-at its first use), kernels B's and C's one-solve-per-team designs on the
-quadrotor at the edges of their blocks and B on the n=12 h_fail fixture,
+at its first use), kernels A's, B's and C's one-solve-per-team designs on
+the quadrotor at the edges of their blocks (A also at B=262,144), A and B
+on the n=12 h_fail fixture, which shapes kernel A solves per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
 inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
@@ -22,6 +23,7 @@ from ratilqr_tpu_torch.ops import _build  # noqa: E402
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
 QUADROTOR = ("quadrotor", 12, 37)   # n=12, m=4
+H_FAIL = (kc.H_FAIL, 12, 37)        # the quadrotor with μ = −1e6 lanes
 CARTPOLE = ("cartpole", 30, 133)    # n=4, m=1
 LINEAR = ("linear6x3", 20, 133)     # no tile model; A and D built for (6, 3)
 
@@ -38,10 +40,53 @@ def device():
                          ids=lambda v: "-".join(k for k, b in v.items() if b)
                          or "evaluating")
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133),
-                                       ("lqr", 7, 5), QUADROTOR, CARTPOLE,
-                                       LINEAR])
+                                       ("lqr", 7, 5), QUADROTOR, H_FAIL,
+                                       CARTPOLE, LINEAR])
 def test_riccati_kernel_matches_plain(device, model, T, B, variant, dtype):
     kc.check_riccati(model, T, B, dtype, device, **variant)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", kc.RICCATI_VARIANTS,
+                         ids=lambda v: "-".join(k for k, b in v.items() if b)
+                         or "evaluating")
+@pytest.mark.parametrize("T,B", [(1, 1), (50, 8), (50, 4_099)],
+                         ids=["lone-team", "one-block", "wide"])
+def test_riccati_team_kernel_matches_plain(device, T, B, variant, dtype):
+    """Kernel A's one-solve-per-team design on the quadrotor in every
+    variant: a lone team over one step, a whole block of 8 and a wide bank
+    over the bank path's 50 (a ragged block: ``QUADROTOR`` above)."""
+    kc.check_riccati("quadrotor", T, B, dtype, device, **variant)
+    kc.clear_caches()
+
+
+def test_riccati_team_kernel_at_full_width(device):
+    """The slim optimizing pass in float32 on a quadrotor bank of 262,144
+    lanes (T=50), each against the plain version on its lane of the
+    16,384 it repeats."""
+    try:
+        kc.check_riccati_wide("quadrotor", 50, 262_144, torch.float32,
+                              device)
+    finally:
+        kc.clear_caches()
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_riccati_design_follows_the_shape(device, dtype):
+    """One solve per team, its working set in dynamic shared memory, at the
+    quadrotor's (12, 4) in every variant and at (6, 3), built at its first
+    use; one solve per thread at the small shapes and where m > 4."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import block_shared_memory
+    for n, m in ((3, 2), (2, 2), (4, 1), (6, 6)):
+        assert block_shared_memory(n, m, dtype)[0] == 0
+    for opt in (True, False):
+        for w_shared in (True, False):
+            nbytes, teams, lanes = block_shared_memory(12, 4, dtype, opt,
+                                                       w_shared)
+            assert lanes in (16, 32) and teams * lanes % 32 == 0
+            assert 0 < nbytes <= 232_448   # a block's limit on the H100
+    assert block_shared_memory(6, 3, dtype)[0] > 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -6,8 +6,9 @@ JAX package.
     tolerances of tests/test_step_fused.py;
   - float64 against JAX ``step_optimize`` (μ-restart loop included) on the
     restart-forcing negative-curvature fixture of that file;
-  - ``python -m ratilqr_tpu_torch.team_sweep step``, which times kernel B's
-    team shapes, needs a card and takes only a kernel it knows.
+  - ``python -m ratilqr_tpu_torch.team_sweep step`` (or ``riccati``), which
+    times kernel B's (kernel A's) team shapes, needs a card and takes only
+    a kernel it knows.
 """
 import numpy as np
 import pytest
@@ -108,12 +109,18 @@ def test_step_optimize_restarts_match_jax_f64():
 
 
 def test_team_sweep_takes_the_kernel(monkeypatch):
-    """``team_sweep step`` exits 1 without a card, an unknown kernel or a
-    second argument 2; every team shape has a lane for each of the
-    quadrotor's 12 rows of AᵀDS and 4 of BᵀDS (team_mat.cuh:dp_step)."""
+    """``team_sweep step`` and ``team_sweep riccati`` exit 1 without a
+    card, an unknown kernel or a second argument 2; every team shape has a
+    lane for each of the quadrotor's 12 rows of AᵀDS and 4 of BᵀDS
+    (team_mat.cuh:dp_step), and kernel A's shapes stage with one buffer or
+    two."""
     from ratilqr_tpu_torch import team_sweep
     assert all(lanes >= 12 + 4 for lanes, _ in team_sweep.VARIANTS)
+    assert all(lanes >= 12 + 4 and buffers in (1, 2)
+               for lanes, _, buffers in team_sweep.RICCATI_VARIANTS)
+    assert {b for *_, b in team_sweep.RICCATI_VARIANTS} == {1, 2}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert team_sweep.main(["step"]) == 1
-    assert team_sweep.main(["riccati"]) == 2
+    assert team_sweep.main(["riccati"]) == 1
+    assert team_sweep.main(["riccati_folded"]) == 2
     assert team_sweep.main(["step", "candidate"]) == 2
