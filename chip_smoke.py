@@ -9,7 +9,7 @@ Phases (each prints a line and raises on failure):
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
-     and stack frame, and kernels A's, B's and C's one-solve-per-team
+     and stack frame, and kernels A's, B's, C's and D's one-solve-per-team
      kernels (the quadrotor) with their shared memory a block; then builds
      kernel A at (6, 3) and kernel D at n=6,
      shapes outside the shipped library, float32 and float64, and prints
@@ -19,9 +19,10 @@ Phases (each prints a line and raises on failure):
      and the cartpole T=50 with B=5 and B=4,099 (kernel D with a shared
      and a per-lane noise model), kernels A and D on the random linear
      problem at (6, 3), T=20, kernels A and B on the n=12 h_fail fixture
-     (``kernel_check.H_FAIL``), kernel A's slim optimizing pass on the
-     quadrotor at B=262,144 in float32, the θ = 1e6 lanes latching m_fail
-     and the h_fail fixtures' lanes h_fail;
+     (``kernel_check.H_FAIL``), kernel A's slim optimizing pass and
+     kernel D (a shared and a per-lane noise model) on the quadrotor at
+     B=262,144 in float32, the θ = 1e6 lanes latching m_fail and the
+     h_fail fixtures' lanes h_fail;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -54,8 +55,7 @@ Phases (each prints a line and raises on failure):
      on the CPU through the plain path;
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144), the
-     quadrotor (B=16,384; kernels A, B and C also at 262,144) and the
-     cartpole (both); warm solves/s.
+     quadrotor and the cartpole (B=16,384 and 262,144); warm solves/s.
 The line before the card's name is the JSON kernel record; the last line
 is the JSON device record.
 """
@@ -136,7 +136,12 @@ DESIGNS = {   # how each kernel spreads a bank over the card
                   "working set in shared memory) at n=12, the quadrotor; one "
                   "solve per thread at n <= 4, the unicycle, LQR and the "
                   "cartpole"),
-    "riccati_folded": "one solve per thread"}
+    "riccati_folded": ("one solve per team of 16 lanes (two a warp, 8 a "
+                       "block, working set in shared memory, the next step's "
+                       "streamed blocks double-buffered by cp.async) at "
+                       "n=12, the quadrotor, and at first-use n with "
+                       "4 < n < 16, e.g. n=6; one solve per thread "
+                       "otherwise: the unicycle, LQR and the cartpole")}
 SHAPES = {   # the (n, m) each kernel runs on the paths of this script
     "riccati": "(3,2) (2,2) (4,1) (12,4) shipped; (6,3) built at first use",
     "step": "unicycle, LQR, cartpole, quadrotor",
@@ -183,8 +188,9 @@ def sync_time(fn):
 
 def build():
     """Phase 2: build the kernels; prints each source's nvcc time and each
-    kernel's ptxas report, then the same for kernels A at (6, 3) and D at
-    n=6, built for those shapes alone."""
+    kernel's ptxas report, the team kernels' with their shared memory a
+    block, then the same for kernels A at (6, 3) and D at n=6, built for
+    those shapes alone."""
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -209,6 +215,19 @@ def build():
               + ", ".join(f"{'optimizing' if opt else 'evaluating'} "
                           f"{'shared' if w else 'per-lane'} W {v[0]} B"
                           for (opt, w), v in smem.items()), flush=True)
+        entry = "riccati_folded_team_kernel"
+        for fn, regs, stores, loads, stack in rows:   # demangled or not
+            if f"{entry}<{name}," in fn or f"{entry}I{name[0]}" in fn:
+                print(f"kernel D, one solve per team (n=12, {dtype}) "
+                      f"{_build.short_name(fn)}: {regs} registers, {stack} B "
+                      f"stack frame, {stores} B spill stores", flush=True)
+        smem = {w: riccati_cuda.folded_block_shared_memory(12, dtype, w)
+                for w in (True, False)}
+        print(f"kernel D, one solve per team (n=12, {dtype}): dynamic "
+              "shared memory a block of {1} teams of {2} lanes: ".format(
+                  *smem[True])
+              + ", ".join(f"{'shared' if w else 'per-lane'} W {v[0]} B"
+                          for w, v in smem.items()), flush=True)
     for label, kernel in (("B", "step"), ("C", "candidate")):
         for dtype, name in ((torch.float32, "float"),
                             (torch.float64, "double")):
@@ -273,12 +292,16 @@ def check_kernels(device):
                 "quadrotor", QUAD_T, B_WIDE, dtype, device))
             kernel_check.clear_caches()
             torch.cuda.empty_cache()
+            for shared_w in (True, False):
+                keep("riccati_folded", kernel_check.check_riccati_folded_wide(
+                    "quadrotor", QUAD_T, B_WIDE, dtype, device, shared_w))
+                torch.cuda.empty_cache()
         print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7, "
               f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D), "
               f"{LINEAR} T={LINEAR_T} (A, D) and the h_fail fixture (A, B), "
               f"B=5 and B=4099"
-              + (f", A's slim optimizing pass on the quadrotor at B={B_WIDE}"
-                 if f32 else "") + ", "
+              + (f", A's slim optimizing pass and D (shared and per-lane W)"
+                 f" on the quadrotor at B={B_WIDE}" if f32 else "") + ", "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
               "max |kernel - plain|"
               + (" (plain's own error vs float64)" if f32 else "") + ": "
@@ -722,20 +745,16 @@ def timings(device, name_power):
     wrapper, launch-alone and plain times and its bound."""
     f32 = torch.float32
     result = {}
-    # The kernel record's widths, and both for the cartpole and for kernels
-    # A, B and C on the quadrotor; the unicycle at B=16,384 and kernel D on
-    # the quadrotor at 262,144 are left out to keep the run short (PERF.md
-    # keeps their last numbers).
-    every = ("riccati", "step", "candidate", "riccati_folded")
-    for model, horizon, B, kernels in (
-            ("unicycle", T, B_WIDE, every),
-            ("quadrotor", QUAD_T, B_MAIN, every),
-            ("quadrotor", QUAD_T, B_WIDE, ("riccati", "step", "candidate")),
-            ("cartpole", CART_T, B_MAIN, every),
-            ("cartpole", CART_T, B_WIDE, every)):
+    # The kernel record's widths, and both for the quadrotor and the
+    # cartpole; the unicycle at B=16,384 is left out to keep the run short
+    # (PERF.md keeps its last numbers).
+    for model, horizon, B in (("unicycle", T, B_WIDE),
+                              ("quadrotor", QUAD_T, B_MAIN),
+                              ("quadrotor", QUAD_T, B_WIDE),
+                              ("cartpole", CART_T, B_MAIN),
+                              ("cartpole", CART_T, B_WIDE)):
         n, m = MODEL_DIMS[model]
-        times = kernel_check.kernel_timings(model, horizon, B, f32, device,
-                                            kernels)
+        times = kernel_check.kernel_timings(model, horizon, B, f32, device)
         for kernel, (ms, launch_ms, plain_ms) in times.items():
             bound, by = kernel_check.bound_ms(kernel, n, m, horizon, B, f32)
             result.setdefault((model, B), {})[kernel] = dict(
@@ -769,8 +788,7 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
     the top level, the cartpole path (T=50, B=16,384, f32) under
     ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``
-    and, for kernels A, B and C, the quadrotor at B=262,144 under
-    ``"quadrotor_wide"``."""
+    and the quadrotor at B=262,144 under ``"quadrotor_wide"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():
         quad = times[("quadrotor", B_MAIN)][name]
@@ -796,12 +814,10 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
                 "launches": sum(c.get(name, 0) for c in cart_counts.values()),
                 "launches_by_path": {f"cartpole_{k}": c.get(name, 0)
                                      for k, c in cart_counts.items()},
-                "at": f"cartpole n=4 m=1 T={CART_T} B={B_MAIN} f32"}})
-        wide = times.get(("quadrotor", B_WIDE), {}).get(name)
-        if wide is not None:
-            rows[-1]["quadrotor_wide"] = {
-                **wide, "library_ms": None,
-                "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_WIDE} f32"}
+                "at": f"cartpole n=4 m=1 T={CART_T} B={B_MAIN} f32"},
+            "quadrotor_wide": {
+                **times[("quadrotor", B_WIDE)][name], "library_ms": None,
+                "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_WIDE} f32"}})
     return {"kernels": rows}
 
 

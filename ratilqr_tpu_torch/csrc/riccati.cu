@@ -80,6 +80,8 @@ namespace {
 
 using rq::team::kTeamLanes;
 using rq::team::kTeams;
+using rq::team::Noise;
+using rq::team::Nothing;
 constexpr int kBuffers = RQ_STAGE_BUFFERS;
 static_assert(kBuffers == 1 || kBuffers == 2, "one or two staging buffers");
 
@@ -205,9 +207,6 @@ __global__ void __launch_bounds__(128) riccati_kernel(const RiccatiArgs a) {
 template <int N, int M>
 constexpr bool kTeamShape = N > rq::kUnrollMax && M <= rq::kUnrollMax && N + M <= kTeamLanes;
 
-template <int>
-struct Nothing {};
-
 // The model blocks of one step, streamed from device memory.
 template <typename T, int N, int M>
 struct Blocks {
@@ -218,12 +217,6 @@ struct Blocks {
 template <typename T, int N, int M>
 struct Policy {
   T L[M][N], dl[M];
-};
-
-// W_t, W⁻¹_t and logdet W_t.
-template <typename T, int N>
-struct Noise {
-  T W[N][N], Wi[N][N], ldW;
 };
 
 // What a team stages each step: the blocks, the policy when evaluating

@@ -52,6 +52,17 @@ constexpr int resident_blocks(int smem_bytes, int threads, int regs) {
   return by_smem < by_regs ? by_smem : by_regs;
 }
 
+// An empty member: what a team or block stages only in some variants
+// (e.g. std::conditional_t<WLANE, Noise<T, N>, Nothing<0>>).
+template <int>
+struct Nothing {};
+
+// W_t, W⁻¹_t and logdet W_t.
+template <typename T, int N>
+struct Noise {
+  T W[N][N], Wi[N][N], ldW;
+};
+
 // A block's shared memory: W_t, W⁻¹_t and logdet W_t (the same for every
 // lane) and its K teams' working sets.
 template <typename T, int N, typename Team, int K>

@@ -35,7 +35,8 @@ from ratilqr_tpu_torch.ops.candidate_cuda import (candidate_bank,
                                                   candidate_bank_plain,
                                                   candidate_layout,
                                                   launch_candidate)
-from ratilqr_tpu_torch.ops.riccati_cuda import (BankSlim, folded_layout,
+from ratilqr_tpu_torch.ops.riccati_cuda import (BankFolded, BankSlim,
+                                                folded_layout,
                                                 launch_folded, launch_riccati,
                                                 riccati_bank,
                                                 riccati_bank_folded,
@@ -471,17 +472,55 @@ def folded_inputs(model: str, T: int, B: int, dtype, device,
 
 
 def check_riccati_folded(model: str, T: int, B: int, dtype, device,
-                         shared_w: bool) -> Tuple[float, float]:
-    """Kernel D against :func:`riccati_bank_folded_plain`; every θ = 1e6
-    lane must latch m_fail."""
+                         shared_w: bool,
+                         kernel: Callable = riccati_bank_folded
+                         ) -> Tuple[float, float]:
+    """Kernel D (``kernel``, of :func:`riccati_bank_folded`'s signature)
+    against :func:`riccati_bank_folded_plain`; every θ = 1e6 lane must
+    latch m_fail."""
     fa, theta = folded_inputs(model, T, B, dtype, device, shared_w)
-    got = riccati_bank_folded(fa, theta)
+    got = kernel(fa, theta)
     want = riccati_bank_folded_plain(fa, theta)
     ref = None
     if dtype == torch.float32:
         ref = riccati_bank_folded_plain(FoldedApprox(*map(_f64, fa)),
                                         _f64(theta))
     out = _compare(got, want, ref, theta, [("value", "value")], dtype)
+    if not bool(want.m_fail[theta == 1e6].all()):
+        raise AssertionError("a θ = 1e6 lane did not latch m_fail")
+    return out
+
+
+def check_riccati_folded_wide(model: str, T: int, B: int, dtype, device,
+                              shared_w: bool) -> Tuple[float, float]:
+    """Kernel D on a bank of ``B`` lanes that repeats the fixture's first
+    ``TILE_BASE`` (as the timings do), against the plain version on those
+    lanes: lane i of the wide bank against lane i mod ``TILE_BASE``.  The
+    bank is widened in the kernel's lane-minor layout and launched as it
+    is, so no ``(B, T, ...)`` copy of it is made: on the quadrotor at
+    B=262,144 a per-lane noise model alone is 15 GB in float32."""
+    base = min(B, TILE_BASE)
+    fa, theta = folded_inputs(model, T, base, dtype, device, shared_w)
+    want = riccati_bank_folded_plain(fa, theta)
+    ref = None
+    if dtype == torch.float32:
+        ref = riccati_bank_folded_plain(FoldedApprox(*map(_f64, fa)),
+                                        _f64(theta))
+    ins, w_shared = folded_layout(fa, theta)
+    reps = -(-B // base)
+    shared = range(4, 7) if w_shared else ()   # ins[4:7]: W, W⁻¹, logdet W
+    got = launch_folded(tuple(
+        x if i in shared else   # lane-minor: the lane axis is the last
+        x.repeat((1,) * (x.dim() - 1) + (reps,))[..., :B].contiguous()
+        for i, x in enumerate(ins)), w_shared)
+    del ins
+    lanes = torch.arange(B, device=got.value.device) % base
+
+    def wide(out):
+        return None if out is None else BankFolded(*(x[lanes] for x in out))
+
+    want, theta = wide(want), theta[lanes]
+    out = _compare(got, want, wide(ref), theta, [("value", "value")], dtype)
     if not bool(want.m_fail[theta == 1e6].all()):
         raise AssertionError("a θ = 1e6 lane did not latch m_fail")
     return out

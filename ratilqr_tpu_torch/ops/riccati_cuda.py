@@ -22,7 +22,8 @@ before any build.
 Kernel A runs one solve per team of 16 lanes, its working set in shared
 memory, at the shapes a team takes (4 < n, m ≤ 4, n + m ≤ 16: the
 quadrotor, and e.g. (6, 3)), and one solve per thread at the others
-(:func:`block_shared_memory` says which).
+(:func:`block_shared_memory` says which).  Kernel D does the same at
+4 < n < 16 (the quadrotor, and e.g. n=6; :func:`folded_block_shared_memory`).
 """
 from __future__ import annotations
 
@@ -283,17 +284,42 @@ def folded_layout(fa, theta: Tensor):
     return ins, w_shared
 
 
-def launch_folded(ins, w_shared: bool) -> BankFolded:
-    """Launch kernel D on arguments prepared by :func:`folded_layout`."""
+def _folded_entry(name: str, dtype, n: int):
+    """Kernel D's C entry point ``name`` at n: from the shipped library, or
+    from the one built for n at its first use."""
+    return _build.entry(KERNEL_FOLDED, dtype,
+                        () if n in FOLDED_SHAPES else (n,), name)
+
+
+def folded_block_shared_memory(n: int, dtype, w_shared: bool = True
+                               ) -> Tuple[int, int, int]:
+    """``(bytes, teams, lanes)`` of kernel D at n with a shared or per-lane
+    noise model: the dynamic shared memory a block takes (0 where the
+    kernel runs one solve per thread), its teams per block and lanes per
+    team.  Builds the library that holds n if needed."""
+    _check_dims(KERNEL_FOLDED, n)
+    teams, lanes = ctypes.c_int(), ctypes.c_int()
+    nbytes = _folded_entry(f"{KERNEL_FOLDED}_smem", dtype, n)(
+        n, int(w_shared), ctypes.byref(teams), ctypes.byref(lanes))
+    _build.check(nbytes if nbytes < 0 else 0, KERNEL_FOLDED)
+    return nbytes, teams.value, lanes.value
+
+
+def launch_folded(ins, w_shared: bool, entry=None) -> BankFolded:
+    """Launch kernel D on arguments prepared by :func:`folded_layout`;
+    ``entry`` is another build's C entry point of the same type (by
+    default the shipped library's, or the one built for n).  A launch the
+    card refuses raises, with the block's shared memory."""
     n, T, Bn = ins[3].shape[-3], ins[0].shape[0], ins[0].shape[-1]
     value = torch.empty(Bn, dtype=ins[0].dtype, device=ins[0].device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=value.device)
-    launch = _build.entry(KERNEL_FOLDED, value.dtype,
-                          () if n in FOLDED_SHAPES else (n,))
+    launch = entry or _folded_entry(KERNEL_FOLDED, value.dtype, n)
     with torch.cuda.device(value.device):
         rc = launch(n, Bn, T, int(w_shared), *map(_build.ptr, ins),
                     _build.ptr(value), _build.ptr(m_fail),
                     _build.stream_of(value))
-    _build.check(rc, KERNEL_FOLDED)
+    _build.check(rc, KERNEL_FOLDED, "" if rc <= 0 else (
+        f"{folded_block_shared_memory(n, value.dtype, w_shared)[0]} B of "
+        "shared memory a block"))
     _build.launch_counts[KERNEL_FOLDED] += 1
     return BankFolded(value, m_fail)

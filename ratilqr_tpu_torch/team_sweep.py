@@ -1,23 +1,24 @@
 """Time the one-solve-per-team design of kernel C (``candidate``), B
-(``step``) or A (``riccati``, its slim optimizing pass) in other team
-shapes, and kernel A's two staging forms.
+(``step``), A (``riccati``, its slim optimizing pass) or D
+(``riccati_folded``, shared noise model) in other team shapes, and kernel
+A's and D's two staging forms.
 
 Builds ``csrc/<kernel>.cu`` once per variant and working type with
 ``-DRQ_TEAM_LANES`` (lanes per team) and ``-DRQ_TEAMS`` (teams per
-block), and for kernel A ``-DRQ_STAGE_BUFFERS`` (1: each step's streamed
-blocks staged synchronously; 2: double-buffered, the next step's copied by
-cp.async during this one), every unit in its own ``nvcc``, all started
-together; prints each variant's registers, spills, stack frame and shared
-memory a block; then times each variant's launch alone (median of 5, CUDA
-events) on the quadrotor at T=50 — float32 at B=16,384 and 262,144,
-float64 at 16,384 — in two passes, the variants in order and then in
-reverse, and checks that each gives the shipped kernel's outputs (kernel
-C: value; kernel B: x, value, L, dl; kernel A: value, L, dl) and fail
-flags bit for bit.
+block), and for kernels A and D ``-DRQ_STAGE_BUFFERS`` (1: each step's
+streamed blocks staged synchronously; 2: double-buffered, the next step's
+copied by cp.async during this one), every unit in its own ``nvcc``, all
+started together; prints each variant's registers, spills, stack frame and
+shared memory a block; then times each variant's launch alone (median of
+5, CUDA events) on the quadrotor at T=50 — float32 at B=16,384 and
+262,144, float64 at 16,384 — in two passes, the variants in order and then
+in reverse, and checks that each gives the shipped kernel's outputs
+(kernels C and D: value; kernel B: x, value, L, dl; kernel A: value, L,
+dl) and fail flags bit for bit.
 
 Run on a machine with a CUDA card, from the repository root:
-``python -m ratilqr_tpu_torch.team_sweep [candidate|step|riccati]``
-(kernel C without an argument).
+``python -m ratilqr_tpu_torch.team_sweep
+[candidate|step|riccati|riccati_folded]`` (kernel C without an argument).
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ from ratilqr_tpu_torch.ops import (_build, candidate_cuda, riccati_cuda,
 
 # (lanes per team, teams per block); the first is shipped.
 VARIANTS = ((16, 8), (16, 4), (16, 16), (32, 8), (32, 4))
-# Kernel A's: (lanes per team, teams per block, staging buffers); the
-# first is shipped.
+# Kernels A's and D's: (lanes per team, teams per block, staging
+# buffers); the first is shipped.
 RICCATI_VARIANTS = ((16, 8, 2), (16, 8, 1), (16, 4, 2), (16, 16, 2),
                     (16, 16, 1), (32, 8, 2))
 T = 50
@@ -43,19 +44,24 @@ WIDTHS = {torch.float32: (16_384, 262_144), torch.float64: (16_384,)}
 LAUNCHES = {"candidate": candidate_cuda.launch_candidate,
             "step": step_cuda.launch_step,
             "riccati": lambda ins, shape, entry=None:
-                riccati_cuda.launch_riccati(ins, shape, True, entry)}
+                riccati_cuda.launch_riccati(ins, shape, True, entry),
+            "riccati_folded": riccati_cuda.launch_folded}
+# Arguments of each kernel's shared-memory query on the quadrotor (kernel
+# A: its slim optimizing pass; A and D: a shared noise model).
+SMEM_QUERY = {"riccati": (12, 4, 1, 1), "riccati_folded": (12, 1)}
 
 
 def variants(kernel):
-    return RICCATI_VARIANTS if kernel == "riccati" else VARIANTS
+    return (RICCATI_VARIANTS if kernel in ("riccati", "riccati_folded")
+            else VARIANTS)
 
 
 def _shared_memory(kernel, lib, suffix):
     """Shared memory a block of the variant ``lib`` takes on the quadrotor
-    (kernel A: its slim optimizing pass, shared noise model)."""
+    (``SMEM_QUERY``)."""
     teams, lanes = ctypes.c_int(), ctypes.c_int()
     query = getattr(lib, f"ratilqr_{kernel}_smem_{suffix}")
-    shape = (12, 4, 1, 1) if kernel == "riccati" else (tile_model.QUADROTOR,)
+    shape = SMEM_QUERY.get(kernel, (tile_model.QUADROTOR,))
     return query(*shape, ctypes.byref(teams), ctypes.byref(lanes))
 
 

@@ -1,8 +1,8 @@
 """The four CUDA kernels against their plain PyTorch versions (unicycle,
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
-at its first use), kernels A's, B's and C's one-solve-per-team designs on
-the quadrotor at the edges of their blocks (A also at B=262,144), A and B
-on the n=12 h_fail fixture, which shapes kernel A solves per team,
+at its first use), kernels A's, B's, C's and D's one-solve-per-team designs
+on the quadrotor at the edges of their blocks (A also at B=262,144), A and
+B on the n=12 h_fail fixture, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
 inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
@@ -173,10 +173,31 @@ def test_candidate_design_follows_the_model(device, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shared_w", [True, False])
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133), ("lqr", 7, 5),
-                                       QUADROTOR, CARTPOLE, LINEAR])
+                                       QUADROTOR, ("quadrotor", 1, 1),
+                                       ("quadrotor", 50, 4_099), CARTPOLE,
+                                       LINEAR])
 def test_riccati_folded_kernel_matches_plain(device, model, T, B, shared_w,
                                              dtype):
+    """Kernel D on every model; on the quadrotor its one-solve-per-team
+    design as a lone team over one step, and in ragged last blocks (B not
+    a multiple of 8) over 12 and the bank path's 50 steps."""
     kc.check_riccati_folded(model, T, B, dtype, device, shared_w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_riccati_folded_design_follows_the_shape(device, dtype):
+    """One solve per team, its working set in dynamic shared memory (more
+    with a per-lane noise model), at the quadrotor's n=12 and at n=6, built
+    at its first use; one solve per thread at the small shapes."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import folded_block_shared_memory
+    for n in (3, 2, 4):
+        for w_shared in (True, False):
+            assert folded_block_shared_memory(n, dtype, w_shared)[0] == 0
+    shared, teams, lanes = folded_block_shared_memory(12, dtype)
+    per_lane = folded_block_shared_memory(12, dtype, False)[0]
+    assert lanes in (16, 32) and teams * lanes % 32 == 0
+    assert 0 < shared < per_lane <= 232_448   # a block's limit on the H100
+    assert folded_block_shared_memory(6, dtype)[0] > 0
 
 
 def test_fold_path_bank_matches_fused_candidate_bank(device):

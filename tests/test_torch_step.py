@@ -109,11 +109,11 @@ def test_step_optimize_restarts_match_jax_f64():
 
 
 def test_team_sweep_takes_the_kernel(monkeypatch):
-    """``team_sweep step`` and ``team_sweep riccati`` exit 1 without a
-    card, an unknown kernel or a second argument 2; every team shape has a
-    lane for each of the quadrotor's 12 rows of AᵀDS and 4 of BᵀDS
-    (team_mat.cuh:dp_step), and kernel A's shapes stage with one buffer or
-    two."""
+    """``team_sweep step``, ``riccati`` and ``riccati_folded`` exit 1
+    without a card, an unknown kernel or a second argument 2; every team
+    shape has a lane for each of the quadrotor's 12 rows of AᵀDS and 4 of
+    BᵀDS (team_mat.cuh:dp_step), and kernel A's and D's shapes stage with
+    one buffer or two."""
     from ratilqr_tpu_torch import team_sweep
     assert all(lanes >= 12 + 4 for lanes, _ in team_sweep.VARIANTS)
     assert all(lanes >= 12 + 4 and buffers in (1, 2)
@@ -122,5 +122,6 @@ def test_team_sweep_takes_the_kernel(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert team_sweep.main(["step"]) == 1
     assert team_sweep.main(["riccati"]) == 1
-    assert team_sweep.main(["riccati_folded"]) == 2
+    assert team_sweep.main(["riccati_folded"]) == 1
+    assert team_sweep.main(["folded"]) == 2
     assert team_sweep.main(["step", "candidate"]) == 2
