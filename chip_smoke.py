@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the iLEQG solver bank on the unicycle, the
-cartpole, the n=12 quadrotor and a problem with no tile model, RAT iLQR and
-the MPC driver) on one CUDA card.
+cartpole, the n=12 quadrotor and a problem with no tile model, RAT iLQR,
+RAT iLQR++, PETS and the MPC driver) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
@@ -16,7 +16,7 @@ Phases (each prints a line and raises on failure):
      each unit's build time and ptxas report;
   3. every kernel against its plain PyTorch version on the card, float32
      and float64, at the unicycle T=100, the LQR T=7, the quadrotor T=50
-     and the cartpole T=50 with B=5 and B=4,099 (kernel D with a shared
+     and the cartpole T=50 with B=1, B=5 and B=4,099 (kernel D with a shared
      and a per-lane noise model), kernels A and D on the random linear
      problem at (6, 3), T=20, kernels A and B on the n=12 h_fail fixture
      (``kernel_check.H_FAIL``), kernel A's slim optimizing pass and
@@ -50,17 +50,39 @@ Phases (each prints a line and raises on failure):
      ``ratilqr_jit.solve``, on the folded candidate evaluation (kernel D)
      and the fused step (kernel B), with the launch counts read around
      each path;
+  7b. the RAT iLQR++ path: ``MPCDriver`` re-planning the unicycle (T=30,
+     f32, inner ``iter_max=30`` with the fused candidate: kernels A and C)
+     three times through each entry point — the host path with
+     ``refresh_carried_costs`` (one-lane banks), the single-call path at
+     reference semantics and with refresh, both at speculation depth 3 —
+     with each re-plan's θ_opt, NM iterations, banks and their widths,
+     host syncs and launches; whether the single-call path's carried final
+     lane equals a fresh one-lane solve in f32; then one cold solve in
+     float64 through the host path and the single-call path (depth 3), on
+     the card and on the CPU, which must take the same decisions;
   8. one CE generation at width (16,384 θ samples), timed and profiled
      (device idle share), and 64 of its θ again in float64 on the card and
      on the CPU through the plain path;
+  8b. PETS: ``gmm_integrator`` (T=50, f32) at K=1,024 control sequences x
+     M=16 rollouts, one ``solve`` of 5 generations timed (median of 3) and
+     profiled under both models; then the uniform PETS fixture in float64
+     on the card and on the CPU with the same control draws (μ, Σ within
+     1e-12);
   9. timings: each kernel's wrapper, its launch alone and its plain
-     version, beside its bound, on the unicycle (B=262,144), the
-     quadrotor and the cartpole (B=16,384 and 262,144); warm solves/s.
-The line before the card's name is the JSON kernel record; the last line
-is the JSON device record.
+     version, beside its bound, on the unicycle (B=262,144; T=30 at
+     RAT iLQR++'s widths B=1 and 942), the quadrotor and the cartpole
+     (B=16,384 and 262,144); warm solves/s.
+The CPU halves of the card-vs-CPU checks (phases 5, 6, 6b, 7b and 8)
+depend on nothing the card computes: they run from the start in
+``CPU_WORKERS`` spawned worker processes while the card works, and the
+script prints how long each took and when it ended.  The line before the
+card's name is the JSON kernel record; the last line is the JSON device
+record.
 """
 import concurrent.futures
+import itertools
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -69,11 +91,15 @@ import numpy as np
 import torch
 
 from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
-                               RATiLQRSolver, kernel_check,
-                               make_batched_solver)
-from ratilqr_tpu_torch.models import cartpole, quadrotor, unicycle
+                               NelderMeadConfig, PETSConfig, RATiLQRSolver,
+                               kernel_check, make_batched_solver,
+                               plan_without_generator, tests_support)
+from ratilqr_tpu_torch.models import (cartpole, gmm_integrator, quadrotor,
+                                      unicycle)
 from ratilqr_tpu_torch.ops import _build, riccati_cuda, tile_model
-from ratilqr_tpu_torch.solvers import ratilqr, ratilqr_jit
+from ratilqr_tpu_torch.solvers import (nelder_mead, nelder_mead_jit, pets,
+                                       ratilqr, ratilqr_jit)
+from ratilqr_tpu_torch.solvers.ratilqr import solve_one
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
                                                 device_busy)
 
@@ -109,6 +135,22 @@ RAT_CONFIG = CrossEntropyConfig(
 KL_BOUND = 0.05
 N_REPLANS = 3   # kept small: the cold re-plan alone takes 20-30 s
 B_CE = 16_384   # one CE generation at the bank size of the bank's path
+# RAT iLQR++ (benchmarks/run_all.py:121-182): the unicycle at T=30 in f32,
+# inner iter_max=30 with the fused candidate (kernels A + C), kl_bound 0.05.
+NM_T = 30
+NM_KL = 0.05
+NM_INNER = ILEQGConfig(iter_max=30, fused_candidate_eval=True)
+NM_KERNELS = ("riccati", "candidate")
+NM_PATHS = {   # name: (solve, refresh_carried_costs, speculation_depth)
+    "nm_host_refresh": (nelder_mead.solve, True, 1),
+    "nm_single_d3": (nelder_mead_jit.solve, False, 3),
+    "nm_single_refresh_d3": (nelder_mead_jit.solve, True, 3),
+}
+NM_WIDTHS = (1, 942)   # the kernels' widths timed on the NM path
+# PETS, the JAX bench's pets_16k cell (benchmarks/run_all.py:255-275).
+PETS_T = 50
+PETS_CONFIG = PETSConfig(num_control_samples=1024, num_trajectory_samples=16,
+                         num_elite=32, iter_max=5)
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "riccati": ("ratilqr_tpu_torch/csrc/riccati.cu",
                 "ratilqr_tpu/ops/riccati_pallas.py:193"),
@@ -268,7 +310,7 @@ def check_kernels(device):
         def keep(name, result):
             worst[name] = tuple(map(max, worst[name], result))
 
-        for B in (5, 4_099):
+        for B in (1, 5, 4_099):
             for model, horizon in cases + [(LINEAR, LINEAR_T),
                                            (kernel_check.H_FAIL, QUAD_T)]:
                 for variant in kernel_check.RICCATI_VARIANTS:
@@ -299,7 +341,7 @@ def check_kernels(device):
         print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7, "
               f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D), "
               f"{LINEAR} T={LINEAR_T} (A, D) and the h_fail fixture (A, B), "
-              f"B=5 and B=4099"
+              f"B=1, B=5 and B=4099"
               + (f", A's slim optimizing pass and D (shared and per-lane W)"
                  f" on the quadrotor at B={B_WIDE}" if f32 else "") + ", "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
@@ -394,22 +436,55 @@ def main_path(device):
     return cold, counts
 
 
-def plain_cpu_parity(cold):
-    """Phase 5: 64 lanes of the cold B=16,384 bank on the CPU, plain."""
-    idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
-    thetas = torch.linspace(0.0, 0.02, B_MAIN, dtype=torch.float32)[idx]
+def lane_idx(B: int, n: int = 64) -> torch.Tensor:
+    """``n`` lanes spread over a bank of ``B``."""
+    return torch.linspace(0, B - 1, n).round().long()
+
+
+def lanes(res, idx=None) -> dict:
+    """A bank result's ``failed``, ``iterations`` and ``value`` (at
+    ``idx``) on the CPU."""
+    return {k: (getattr(res, k) if idx is None else
+                getattr(res, k)[idx.to(res.value.device)]).cpu()
+            for k in ("failed", "iterations", "value")}
+
+
+# The CPU halves of the card-vs-CPU checks.  They depend on nothing the
+# card computes, so they run in worker processes (CPU_WORKERS, each on
+# CPU_THREADS threads) while the card runs the phases before them.
+CPU_WORKERS = 2
+CPU_THREADS = 3
+
+
+def timed(fn):
+    """``(fn(), seconds, finished at)`` (the end on the wall clock, which
+    the worker and the main process share)."""
+    t0 = time.time()
+    out = fn()
+    return out, time.time() - t0, time.time()
+
+
+def cpu_unicycle():
+    """Phase 5's CPU half: 64 lanes of the cold B=16,384 bank, plain."""
+    thetas = torch.linspace(0.0, 0.02, B_MAIN,
+                            dtype=torch.float32)[lane_idx(B_MAIN)]
     bank = make_batched_solver(unicycle(N=T, dtype=torch.float32,
                                         device="cpu"),
                                BENCH_CONFIG)
-    res = bank(torch.zeros(3), torch.zeros((T, 2)), thetas)
-    gpu = {k: getattr(cold, k)[idx.to(cold.value.device)].cpu()
-           for k in ("failed", "iterations", "value")}
-    assert torch.equal(res.failed, gpu["failed"]), "failed lanes differ"
-    assert torch.equal(res.iterations, gpu["iterations"]), (
-        f"iterations differ: cpu {res.iterations.tolist()} "
+    return lanes(bank(torch.zeros(3), torch.zeros((T, 2)), thetas))
+
+
+def plain_cpu_parity(cold, job):
+    """Phase 5: 64 lanes of the cold B=16,384 bank on the CPU, plain."""
+    res = job.result()[0]
+    gpu = lanes(cold, lane_idx(B_MAIN))
+    assert torch.equal(res["failed"], gpu["failed"]), "failed lanes differ"
+    assert torch.equal(res["iterations"], gpu["iterations"]), (
+        f"iterations differ: cpu {res['iterations'].tolist()} "
         f"gpu {gpu['iterations'].tolist()}")
-    torch.testing.assert_close(gpu["value"], res.value, rtol=1e-3, atol=0)
-    rel = float(((gpu["value"] - res.value) / res.value).abs().max())
+    torch.testing.assert_close(gpu["value"], res["value"], rtol=1e-3,
+                               atol=0)
+    rel = float(((gpu["value"] - res["value"]) / res["value"]).abs().max())
     print(f"64 lanes vs the plain path on the CPU (f32): failed and "
           f"iterations equal, value max rel diff {rel:.3e}", flush=True)
 
@@ -471,30 +546,33 @@ def quadrotor_path(device):
     return counts
 
 
-def quadrotor_cpu_parity(device):
+def quad64(device):
+    """Configuration (b) at 64 θ, cold, in float64 on ``device``."""
+    f64 = torch.float64
+    bank = make_batched_solver(quadrotor(N=QUAD_T, dtype=f64, device=device),
+                               MODEL_CONFIGS["b"][0], device=device)
+    return lanes(bank(torch.zeros(12, dtype=f64),
+                      torch.zeros((QUAD_T, 4), dtype=f64),
+                      quad_thetas(B_MAIN, f64)[lane_idx(B_MAIN)]))
+
+
+def cpu_quadrotor():
+    return quad64(torch.device("cpu"))
+
+
+def quadrotor_cpu_parity(device, job):
     """Phase 6, last: 64 θ of configuration (b), cold, in float64 on the
     card and on the CPU through the plain path."""
-    f64 = torch.float64
-    idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
-    thetas = quad_thetas(B_MAIN, f64)[idx]
-    config = MODEL_CONFIGS["b"][0]
-    out = []
-    for dev in (device, torch.device("cpu")):
-        bank = make_batched_solver(quadrotor(N=QUAD_T, dtype=f64, device=dev),
-                                   config, device=dev)
-        out.append(bank(torch.zeros(12, dtype=f64),
-                        torch.zeros((QUAD_T, 4), dtype=f64), thetas))
-    gpu = {k: getattr(out[0], k).cpu() for k in ("failed", "iterations",
-                                                  "value")}
-    cpu = out[1]
-    assert not bool(cpu.failed.any()), "float64 quadrotor lanes failed"
-    assert torch.equal(cpu.failed, gpu["failed"]), "failed lanes differ"
-    assert torch.equal(cpu.iterations, gpu["iterations"]), (
-        f"iterations differ: cpu {cpu.iterations.tolist()} "
+    gpu, cpu = quad64(device), job.result()[0]
+    assert not bool(cpu["failed"].any()), "float64 quadrotor lanes failed"
+    assert torch.equal(cpu["failed"], gpu["failed"]), "failed lanes differ"
+    assert torch.equal(cpu["iterations"], gpu["iterations"]), (
+        f"iterations differ: cpu {cpu['iterations'].tolist()} "
         f"gpu {gpu['iterations'].tolist()}")
-    torch.testing.assert_close(gpu["value"], cpu.value, rtol=1e-3, atol=0)
-    rel = float(((gpu["value"] - cpu.value) / cpu.value).abs().max())
-    it = cpu.iterations
+    torch.testing.assert_close(gpu["value"], cpu["value"], rtol=1e-3,
+                               atol=0)
+    rel = float(((gpu["value"] - cpu["value"]) / cpu["value"]).abs().max())
+    it = cpu["iterations"]
     print(f"64 quadrotor θ of (b) in float64 on the card vs the plain path "
           f"on the CPU: failed and iterations ({int(it.min())}.."
           f"{int(it.max())}) equal, value max rel diff {rel:.3e}",
@@ -522,18 +600,38 @@ def cartpole_path(device):
     return counts
 
 
-def cartpole_cpu_parity(device):
+def cart64(device):
+    """The working cell (b) at 64 θ, cold, in float64 on ``device``."""
+    f64 = torch.float64
+    bank = make_batched_solver(cartpole(N=CART_T, dtype=f64, device=device),
+                               MODEL_CONFIGS["b"][0])
+    return lanes(bank(torch.tensor(CART_X0, dtype=f64),
+                      torch.zeros((CART_T, 1), dtype=f64),
+                      cart_thetas(B_MAIN, f64)[lane_idx(B_MAIN)]))
+
+
+def cpu_cartpole():
+    """The cartpole's CPU halves: JAX's bench cell (x0 = 0, (a), f32) and
+    the working cell (b) in float64, 64 lanes each, plain."""
+    f32 = torch.float32
+    bank = make_batched_solver(cartpole(N=CART_T, dtype=f32, device="cpu"),
+                               MODEL_CONFIGS["a"][0])
+    zero = bank(torch.zeros(4, dtype=f32), torch.zeros((CART_T, 1)),
+                cart_thetas(B_MAIN, f32)[lane_idx(B_MAIN)])
+    return lanes(zero), cart64(torch.device("cpu"))
+
+
+def cartpole_cpu_parity(device, job):
     """Phase 6, the cartpole against the CPU's plain path: JAX's bench cell
     (x0 = 0, configuration (a), cold and warm at B=16,384; its failure
     pattern on 64 lanes), then 64 lanes of the working cell (b) in
     float64."""
-    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
-    idx = torch.linspace(0, B_MAIN - 1, 64).round().long()
+    f32 = torch.float32
+    idx = lane_idx(B_MAIN)
     thetas = cart_thetas(B_MAIN, f32, device)
     zero_x, zero_u = torch.zeros(4, dtype=f32), torch.zeros((CART_T, 1))
-    config = MODEL_CONFIGS["a"][0]
     bank = make_batched_solver(cartpole(N=CART_T, dtype=f32, device=device),
-                               config)
+                               MODEL_CONFIGS["a"][0])
     cold = bank(zero_x, zero_u, thetas)
     warm = bank(zero_x, cold.l[0], thetas)
     positive = thetas > 0
@@ -543,74 +641,78 @@ def cartpole_cpu_parity(device):
         print(f"cartpole JAX bench cell (x0 = 0, (a)) {label} B={B_MAIN}: "
               f"{n_failed} failed lanes of {int(positive.sum())} with θ > 0"
               f", all at iteration 0: {at_zero}", flush=True)
-    plain = make_batched_solver(cartpole(N=CART_T, dtype=f32, device=cpu),
-                                config)(zero_x, zero_u, thetas[idx].cpu())
+    plain, cpu_res = job.result()[0]
+    got = lanes(cold, idx)
     for k in ("failed", "iterations"):
-        got = getattr(cold, k)[idx.to(device)].cpu()
-        assert torch.equal(got, getattr(plain, k)), (
-            f"x0 = 0 {k} differ: cpu {getattr(plain, k).tolist()} gpu "
-            f"{got.tolist()}")
-    print(f"cartpole x0 = 0: 64 lanes' failed ({int(plain.failed.sum())}) "
-          "and iterations equal to the CPU plain path's", flush=True)
+        assert torch.equal(got[k], plain[k]), (
+            f"x0 = 0 {k} differ: cpu {plain[k].tolist()} gpu "
+            f"{got[k].tolist()}")
+    print(f"cartpole x0 = 0: 64 lanes' failed ({int(plain['failed'].sum())})"
+          " and iterations equal to the CPU plain path's", flush=True)
 
-    config = MODEL_CONFIGS["b"][0]
-    out = []
-    for dev in (device, cpu):
-        bank = make_batched_solver(cartpole(N=CART_T, dtype=f64, device=dev),
-                                   config)
-        out.append(bank(torch.tensor(CART_X0, dtype=f64),
-                        torch.zeros((CART_T, 1), dtype=f64),
-                        cart_thetas(B_MAIN, f64)[idx]))
-    gpu = {k: getattr(out[0], k).cpu() for k in ("failed", "iterations",
-                                                  "value")}
-    cpu_res = out[1]
-    assert not bool(cpu_res.failed.any()), "float64 cartpole lanes failed"
-    assert torch.equal(cpu_res.failed, gpu["failed"]), "failed lanes differ"
-    assert torch.equal(cpu_res.iterations, gpu["iterations"]), (
-        f"iterations differ: cpu {cpu_res.iterations.tolist()} "
+    gpu = cart64(device)
+    assert not bool(cpu_res["failed"].any()), "float64 cartpole lanes failed"
+    assert torch.equal(cpu_res["failed"], gpu["failed"]), (
+        "failed lanes differ")
+    assert torch.equal(cpu_res["iterations"], gpu["iterations"]), (
+        f"iterations differ: cpu {cpu_res['iterations'].tolist()} "
         f"gpu {gpu['iterations'].tolist()}")
-    torch.testing.assert_close(gpu["value"], cpu_res.value, rtol=1e-9, atol=0)
-    rel = float(((gpu["value"] - cpu_res.value) / cpu_res.value).abs().max())
-    it = cpu_res.iterations
+    torch.testing.assert_close(gpu["value"], cpu_res["value"], rtol=1e-9,
+                               atol=0)
+    rel = float(((gpu["value"] - cpu_res["value"])
+                 / cpu_res["value"]).abs().max())
+    it = cpu_res["iterations"]
     print(f"64 cartpole θ of (b) in float64 on the card vs the plain path on "
           f"the CPU: failed and iterations ({int(it.min())}..{int(it.max())})"
           f" equal, value max rel diff {rel:.3e}", flush=True)
 
 
-def linear_path(device):
+def linear_inputs():
+    n, m = kernel_check.linear_dims(LINEAR)
+    x0 = np.random.default_rng(0).uniform(-1.0, 1.0, n)
+    return (x0, np.zeros((LINEAR_T, m)), np.linspace(0.0, 0.05, B_LINEAR),
+            np.linspace(0, B_LINEAR - 1, 64).round().astype(int))
+
+
+def cpu_linear():
+    """Phase 6b's CPU half: 64 lanes in each configuration, plain."""
+    x0, u0, thetas, idx = linear_inputs()
+    prob = kernel_check.make_problem(LINEAR, LINEAR_T, torch.float64,
+                                     torch.device("cpu"))
+    return {name: lanes(make_batched_solver(prob, config)(x0, u0,
+                                                          thetas[idx]))
+            for name, (config, _) in LINEAR_CONFIGS.items()}
+
+
+def linear_path(device, job):
     """Phase 6b: the random linear problem at (6, 3), no tile model, on the
     card in each configuration of ``LINEAR_CONFIGS``, 64 lanes against the
     CPU's plain path in float64; then one bank from numpy inputs.  Returns
     the launch counts per configuration."""
-    f64, cpu = torch.float64, torch.device("cpu")
-    n, m = kernel_check.linear_dims(LINEAR)
-    x0 = np.random.default_rng(0).uniform(-1.0, 1.0, n)
-    u0 = np.zeros((LINEAR_T, m))
-    thetas = np.linspace(0.0, 0.05, B_LINEAR)
-    idx = np.linspace(0, B_LINEAR - 1, 64).round().astype(int)
-    prob = {dev: kernel_check.make_problem(LINEAR, LINEAR_T, f64, dev)
-            for dev in (device, cpu)}
+    m = kernel_check.linear_dims(LINEAR)[1]
+    x0, u0, thetas, idx = linear_inputs()
+    prob = kernel_check.make_problem(LINEAR, LINEAR_T, torch.float64, device)
     counts = {}
     for name, (config, path) in LINEAR_CONFIGS.items():
         _build.reset_launch_counts()
-        res, secs = sync_time(lambda: make_batched_solver(prob[device], config)(
+        res, secs = sync_time(lambda: make_batched_solver(prob, config)(
             torch.tensor(x0), torch.tensor(u0), torch.tensor(thetas)))
         counts[name] = dict(_build.launch_counts)
         check_result(f"{LINEAR} ({name}) f64 solve", res, B_LINEAR, LINEAR_T,
                      m, secs)
         expect_path(f"{LINEAR} ({name})", counts[name], path)
-        plain = make_batched_solver(prob[cpu], config)(x0, u0, thetas[idx])
+        plain, got = job.result()[0][name], lanes(res, torch.tensor(idx))
         for k in ("failed", "iterations"):
-            assert torch.equal(getattr(res, k)[idx].cpu(), getattr(plain, k))
-        torch.testing.assert_close(res.value[idx].cpu(), plain.value,
-                                   rtol=1e-9, atol=0)
-        rel = float(((res.value[idx].cpu() - plain.value)
-                     / plain.value).abs().max())
+            assert torch.equal(got[k], plain[k]), f"{name}: {k} differ"
+        torch.testing.assert_close(got["value"], plain["value"], rtol=1e-9,
+                                   atol=0)
+        rel = float(((got["value"] - plain["value"])
+                     / plain["value"]).abs().max())
         print(f"{LINEAR} ({name}): launch counts {counts[name]}; 64 lanes "
               f"equal to the CPU plain path's, value max rel diff {rel:.3e}",
               flush=True)
     _build.reset_launch_counts()
-    res = make_batched_solver(prob[device], ILEQGConfig())(x0, u0, thetas)
+    res = make_batched_solver(prob, ILEQGConfig())(x0, u0, thetas)
     launched = dict(_build.launch_counts)
     assert res.value.device.type == "cuda" and res.l.device.type == "cuda"
     assert launched.get("riccati", 0) > 0, launched
@@ -686,9 +788,216 @@ def rat_mpc(device):
     return total
 
 
-def ce_generation(device, name_power):
+def nm_config(refresh: bool, depth: int) -> NelderMeadConfig:
+    return NelderMeadConfig(theta_high_init=0.02, theta_low_init=1e-8,
+                            refresh_carried_costs=refresh,
+                            speculation_depth=depth, ileqg=NM_INNER)
+
+
+def widths_text(widths) -> str:
+    """Bank widths in run order, runs of one width folded: "120, 942 x 2"."""
+    return ", ".join(f"{w}" + (f" x {n}" if n > 1 else "") for w, n in (
+        (w, len(list(g))) for w, g in itertools.groupby(widths)))
+
+
+def nm_mpc(device):
+    """Phase 7b: N_REPLANS MPC re-plans through each entry point of
+    ``NM_PATHS``, each re-plan's banks, host syncs and launches read
+    around it; then whether the single-call path's carried final lane
+    equals a fresh one-lane solve.  Returns the launch counts per path."""
+    f32 = torch.float32
+    prob = unicycle(N=NM_T, dtype=f32, device=device)
+    x0 = torch.zeros(3, dtype=f32, device=device)
+    u0 = torch.zeros((NM_T, 2), dtype=f32, device=device)
+    counts = {}
+    for name, (solve, refresh, depth) in NM_PATHS.items():
+        config = nm_config(refresh, depth)
+        state = {"s": nelder_mead.init_state(config)}
+        records = []
+
+        def counted(x, u, kl_bound, solve=solve, config=config,
+                    state=state, records=records):
+            before = dict(_build.launch_counts)
+            with count_host_syncs() as syncs, \
+                    nelder_mead.record_banks() as widths:
+                res = solve(prob, config, state["s"], x, u,
+                            kl_bound=kl_bound)
+            state["s"] = res.state
+            records.append((res, syncs.n, list(widths), {
+                k: _build.launch_counts[k] - before.get(k, 0)
+                for k in NM_KERNELS}))
+            return res
+
+        _build.reset_launch_counts()
+        steps = MPCDriver(prob, plan_without_generator(
+            counted, kl_bound=NM_KL)).run(
+                x0, u0, torch.Generator().manual_seed(0), N_REPLANS)
+        counts[name] = dict(_build.launch_counts)
+        for k, (step, (res, syncs, widths, launches)) in enumerate(
+                zip(steps, records)):
+            assert bool(torch.isfinite(step.value)) and bool(
+                torch.isfinite(step.u).all()), f"{name} re-plan {k}"
+            assert float(res.theta_opt) > 0, f"{name} re-plan {k}: θ_opt 0"
+            print(f"RAT iLQR++ {name} re-plan {k}: θ_opt "
+                  f"{float(res.theta_opt):.6g}, value "
+                  f"{float(step.value):.6f}, {res.state.iter_current} NM "
+                  f"iterations, {len(widths)} banks ({widths_text(widths)}),"
+                  f" {syncs} host syncs, launches riccati "
+                  f"{launches['riccati']} candidate {launches['candidate']},"
+                  f" plan {step.plan_time_s * 1e3:.1f} ms", flush=True)
+        lat = sorted(s.plan_time_s for s in steps[1:])
+        print(f"RAT iLQR++ {name}: warm re-plan p50 "
+              f"{lat[len(lat) // 2] * 1e3:.1f} ms over re-plans 1-"
+              f"{N_REPLANS - 1}, cold {steps[0].plan_time_s * 1e3:.1f} ms "
+              f"(host clock, device synchronized); launch counts "
+              f"{counts[name]}", flush=True)
+        expect_path(name, counts[name], NM_KERNELS)
+        if solve is nelder_mead_jit.solve:
+            # The cold re-plan's result is θ_low's carried lane: does a
+            # fresh one-lane solve at θ_opt give the same, bit for bit?
+            res = records[0][0]
+            fresh = solve_one(nelder_mead.vertex_bank(prob, config.ileqg),
+                              x0, u0, float(res.theta_opt))
+            value = fresh.value + float(torch.tensor(NM_KL, dtype=f32)
+                                        / res.theta_opt)
+            exact = all(torch.equal(a, b) for a, b in (
+                (res.x, fresh.x), (res.l, fresh.l), (res.L, fresh.L),
+                (res.value, value)))
+            print(f"RAT iLQR++ {name}, f32: the cold re-plan's carried lane "
+                  f"against a fresh one-lane solve at θ_opt: x, l, L, value "
+                  f"bit for bit equal: {exact}; max |Δl| "
+                  f"{float((res.l - fresh.l).abs().max()):.3e}, |Δvalue| "
+                  f"{abs(float(res.value - value)):.3e}", flush=True)
+    return counts
+
+
+def nm_cold64(device) -> dict:
+    """One cold RAT iLQR++ solve in float64 on ``device`` through the host
+    path (reference semantics) and the single-call path at depth 3: label
+    -> (θ_opt, value, state, seconds).  The unicycle with closed-form
+    Jacobians keeps the CPU runs short."""
+    f64 = torch.float64
+    prob = unicycle(N=NM_T, dtype=f64, device=device, analytic_jacobians=True)
+    out = {}
+    for label, solve, depth in (("host", nelder_mead.solve, 1),
+                                ("single-call d3", nelder_mead_jit.solve, 3)):
+        config = nm_config(False, depth)
+        t0 = time.perf_counter()
+        res = solve(prob, config, nelder_mead.init_state(config),
+                    torch.zeros(3, dtype=f64),
+                    torch.zeros((NM_T, 2), dtype=f64), kl_bound=NM_KL)
+        out[label] = (float(res.theta_opt), float(res.value), res.state,
+                      time.perf_counter() - t0)
+    return out
+
+
+def cpu_nm():
+    return nm_cold64(torch.device("cpu"))
+
+
+def nm_f64_parity(device, job):
+    """Phase 7b, last: one cold solve in float64 through the host path
+    (reference semantics) and the single-call path at depth 3, on the card
+    and on the CPU: every run must take the same decisions."""
+    runs = {("cuda", label): r for label, r in nm_cold64(device).items()}
+    runs.update({("cpu", label): r for label, r in job.result()[0].items()})
+    ref_theta, _, sr, _ = runs[("cpu", "host")]
+    for (dev, label), (theta, value, st, secs) in runs.items():
+        assert st.iter_current == sr.iter_current, (
+            f"{dev} {label}: {st.iter_current} NM iterations, the CPU host "
+            f"path {sr.iter_current}")
+        for name in ("theta_low", "c_low", "c_high"):
+            np.testing.assert_allclose(getattr(st, name), getattr(sr, name),
+                                       rtol=1e-8, err_msg=f"{dev} {label}")
+        np.testing.assert_allclose(theta, ref_theta, rtol=1e-8)
+        print(f"RAT iLQR++ f64 cold solve, {dev} {label}: θ_opt "
+              f"{theta:.12g}, c_low {st.c_low:.12g}, c_high "
+              f"{st.c_high:.12g}, {st.iter_current} NM iterations, value "
+              f"{value:.12g}, {secs:.1f} s", flush=True)
+    print("RAT iLQR++ f64: the card and the CPU, host and single-call "
+          "paths, take the same decisions (θ_opt, c_low, c_high within "
+          "rtol 1e-8, equal iterations)", flush=True)
+
+
+def pets_phase(device, name_power):
+    """Phase 8b: PETS on ``gmm_integrator`` at the JAX bench's pets_16k
+    cell in float32, one ``solve`` timed (median of 3) and profiled under
+    both models; then ``tests_support.uniform_problem`` in float64 on the
+    card and on the CPU with the same control draws."""
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    K, M = PETS_CONFIG.num_control_samples, PETS_CONFIG.num_trajectory_samples
+    prob = gmm_integrator(N=PETS_T, dtype=f32, device=device)
+    state = pets.init_state(
+        torch.zeros((PETS_T, 2), dtype=f32, device=device),
+        torch.eye(2, dtype=f32, device=device).expand(PETS_T, 2, 2))
+    x0 = torch.zeros(2, dtype=f32, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for true_model in (False, True):
+        def run():
+            return pets.solve(prob, PETS_CONFIG, x0, state, gen, true_model)
+
+        out = run()   # warm-up
+        secs = sorted(sync_time(run)[1] for _ in range(3))[1]
+        out, wall, busy = device_busy(run)
+        assert out.iter_current == PETS_CONFIG.iter_max
+        assert bool(torch.isfinite(out.mu).all()) and bool(
+            torch.isfinite(out.sigma).all()), "PETS: non-finite distribution"
+        gens = PETS_CONFIG.iter_max / secs
+        print(f"PETS gmm_integrator T={PETS_T} f32 K={K} M={M} "
+              f"use_true_model={true_model}: solve {secs * 1e3:.1f} ms "
+              f"(median of 3, host clock), {gens:.2f} generations/s, "
+              f"{gens * K * M:.1f} rollouts/s; profiled run {wall:.3f} s "
+              f"wall, device busy {busy * 1e3:.1f} ms, idle share "
+              f"{1 - busy / wall:.4f} ({name_power})", flush=True)
+
+    T = 20
+    zs = torch.randn((PETS_CONFIG.iter_max, K, T, 2),
+                     generator=torch.Generator().manual_seed(1), dtype=f64)
+    out = []
+    for dev in (device, cpu):
+        st = pets.init_state(torch.zeros((T, 2), dtype=f64),
+                             torch.eye(2, dtype=f64).expand(T, 2, 2))
+        prob = tests_support.uniform_problem(N=T, device=dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        for z in zs:
+            st = pets.step(prob, PETS_CONFIG, torch.zeros(2, dtype=f64), st,
+                           g, z=z.to(dev))
+        out.append(st)
+    diff = {}
+    for name in ("mu", "sigma"):
+        a, b = (getattr(o, name).cpu() for o in out)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+        diff[name] = float((a - b).abs().max())
+    print(f"PETS f64 uniform problem T={T}, {PETS_CONFIG.iter_max} "
+          f"generations with the same control draws: card and CPU μ, Σ "
+          f"within 1e-12 (max |Δμ| {diff['mu']:.3e}, |ΔΣ| "
+          f"{diff['sigma']:.3e})", flush=True)
+
+
+def ce_thetas64():
+    """64 of the CE generation's θ, in float64 (from the CPU's float32
+    grid, so the card and the CPU take the same values)."""
+    thetas = torch.linspace(1e-4, 0.02, B_CE, dtype=torch.float32)
+    return thetas[lane_idx(B_CE)].to(torch.float64)
+
+
+def ce64(device):
+    """The bank of 64 CE θ in float64 on ``device``."""
+    f64 = torch.float64
+    return lanes(ratilqr.make_cost_fn(rat_problem(device, f64),
+                                      RAT_CONFIG).bank(
+        torch.zeros(3, dtype=f64), torch.zeros((T, 2), dtype=f64),
+        ce_thetas64()))
+
+
+def cpu_ce():
+    return ce64(torch.device("cpu"))
+
+
+def ce_generation(device, name_power, job):
     """Phase 8: one CE generation of B_CE lanes, timed and profiled, and 64
-    of its θ again in float64, on the card and on the CPU (plain path).
+    of its θ (as float64) again in float64, on the card and on the CPU
+    (plain path).
 
     In float32 at this noise most inner solves stop at ``iter_max`` with
     ‖Δl‖ just above ``d_tol``: the small-θ risk term amplifies rounding, so
@@ -716,25 +1025,18 @@ def ce_generation(device, name_power):
           f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.4f} "
           f"({name_power})", flush=True)
 
-    idx = torch.linspace(0, B_CE - 1, 64).round().long()
-    th64 = thetas.cpu()[idx].to(f64)
-    card_res, cpu = (
-        ratilqr.make_cost_fn(rat_problem(dev, f64), RAT_CONFIG).bank(
-            torch.zeros(3, dtype=f64, device=dev),
-            torch.zeros((T, 2), dtype=f64, device=dev), th64.to(dev))
-        for dev in (device, torch.device("cpu")))
-    gpu = {k: getattr(card_res, k).cpu() for k in ("failed", "iterations",
-                                                    "value")}
-    assert not bool(cpu.failed.any()), "float64 CE lanes failed on the CPU"
-    assert torch.equal(cpu.failed, gpu["failed"]), "failed lanes differ"
-    assert torch.equal(cpu.iterations, gpu["iterations"]), (
-        f"iterations differ: cpu {cpu.iterations.tolist()} "
+    gpu, cpu = ce64(device), job.result()[0]
+    assert not bool(cpu["failed"].any()), "float64 CE lanes failed on the CPU"
+    assert torch.equal(cpu["failed"], gpu["failed"]), "failed lanes differ"
+    assert torch.equal(cpu["iterations"], gpu["iterations"]), (
+        f"iterations differ: cpu {cpu['iterations'].tolist()} "
         f"gpu {gpu['iterations'].tolist()}")
-    cpu_costs = ratilqr.costs_of(cpu, th64, KL_BOUND)
+    th64 = ce_thetas64()
+    cpu_costs = cpu["value"] + KL_BOUND / th64
     gpu_costs = gpu["value"] + KL_BOUND / th64
     torch.testing.assert_close(gpu_costs, cpu_costs, rtol=1e-3, atol=0)
     rel = float(((gpu_costs - cpu_costs) / cpu_costs).abs().max())
-    it = cpu.iterations
+    it = cpu["iterations"]
     print(f"64 CE θ in float64 on the card vs the plain path on the CPU: "
           f"failed and iterations ({int(it.min())}..{int(it.max())}) equal, "
           f"cost max rel diff {rel:.3e}", flush=True)
@@ -767,6 +1069,18 @@ def timings(device, name_power):
                   f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
                   f"the plain version of 3, CUDA events; {name_power})",
                   flush=True)
+    for B in NM_WIDTHS:   # RAT iLQR++'s one-lane and depth-3 banks
+        times = kernel_check.kernel_timings("unicycle", NM_T, B, f32, device)
+        for kernel, (ms, launch_ms, plain_ms) in times.items():
+            bound, by = kernel_check.bound_ms(kernel, 3, 2, NM_T, B, f32)
+            result.setdefault(("unicycle_nm", B), {})[kernel] = dict(
+                ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+            print(f"time {kernel} unicycle T={NM_T} B={B} f32 (RAT iLQR++ "
+                  f"widths): wrapper {ms:.4f} ms, launch alone "
+                  f"{launch_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound:.5f} ms ({by}) (median of 5, the plain version "
+                  f"of 3, CUDA events; {name_power})", flush=True)
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -787,8 +1101,9 @@ def timings(device, name_power):
 def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
     the top level, the cartpole path (T=50, B=16,384, f32) under
-    ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``
-    and the quadrotor at B=262,144 under ``"quadrotor_wide"``."""
+    ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``,
+    the quadrotor at B=262,144 under ``"quadrotor_wide"`` and the unicycle
+    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():
         quad = times[("quadrotor", B_MAIN)][name]
@@ -817,7 +1132,12 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
                 "at": f"cartpole n=4 m=1 T={CART_T} B={B_MAIN} f32"},
             "quadrotor_wide": {
                 **times[("quadrotor", B_WIDE)][name], "library_ms": None,
-                "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_WIDE} f32"}})
+                "at": f"quadrotor n=12 m=4 T={QUAD_T} B={B_WIDE} f32"},
+            "unicycle_nm": {
+                f"B={B}": {**times[("unicycle_nm", B)][name],
+                           "library_ms": None,
+                           "at": f"unicycle n=3 m=2 T={NM_T} B={B} f32"}
+                for B in NM_WIDTHS}})
     return {"kernels": rows}
 
 
@@ -833,7 +1153,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: "
           f"{name_power} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    t_start = time.perf_counter()
+    t_start, t_start_wall = time.perf_counter(), time.time()
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()
@@ -842,25 +1162,48 @@ def main() -> int:
         print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
         return out
 
-    phase("build", build)
-    err32 = phase("kernels vs plain", check_kernels, device)
-    cold, bank_counts = phase("unicycle bank", main_path, device)
-    phase("unicycle CPU parity", plain_cpu_parity, cold)
-    del cold
-    quad_counts = phase("quadrotor bank", quadrotor_path, device)
-    phase("quadrotor f64 CPU parity", quadrotor_cpu_parity, device)
-    cart_counts = phase("cartpole bank", cartpole_path, device)
-    phase("cartpole CPU parity", cartpole_cpu_parity, device)
-    linear_counts = phase("any problem", linear_path, device)
-    rat_counts = phase("RAT iLQR MPC", rat_mpc, device)
-    phase("CE generation", ce_generation, device, name_power)
-    times = phase("timings", timings, device, name_power)
+    # The CPU halves of the parity checks run in worker processes while
+    # the card works; every worker is stopped before the script returns.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=torch.set_num_threads, initargs=(CPU_THREADS,))
+    try:
+        cpu = {name: pool.submit(timed, fn) for name, fn in (
+            ("unicycle", cpu_unicycle), ("quadrotor", cpu_quadrotor),
+            ("cartpole", cpu_cartpole), ("linear", cpu_linear),
+            ("nm", cpu_nm), ("ce", cpu_ce))}
+        phase("build", build)
+        err32 = phase("kernels vs plain", check_kernels, device)
+        cold, bank_counts = phase("unicycle bank", main_path, device)
+        phase("unicycle CPU parity", plain_cpu_parity, cold, cpu["unicycle"])
+        del cold
+        quad_counts = phase("quadrotor bank", quadrotor_path, device)
+        phase("quadrotor f64 CPU parity", quadrotor_cpu_parity, device,
+              cpu["quadrotor"])
+        cart_counts = phase("cartpole bank", cartpole_path, device)
+        phase("cartpole CPU parity", cartpole_cpu_parity, device,
+              cpu["cartpole"])
+        linear_counts = phase("any problem", linear_path, device,
+                              cpu["linear"])
+        rat_counts = phase("RAT iLQR MPC", rat_mpc, device)
+        nm_counts = phase("RAT iLQR++ MPC", nm_mpc, device)
+        phase("RAT iLQR++ f64 card and CPU", nm_f64_parity, device,
+              cpu["nm"])
+        phase("CE generation", ce_generation, device, name_power, cpu["ce"])
+        phase("PETS", pets_phase, device, name_power)
+        times = phase("timings", timings, device, name_power)
+        print(f"CPU halves, in {CPU_WORKERS} worker processes: " + ", ".join(
+            f"{name} {job.result()[1]:.1f} s (done "
+            f"{job.result()[2] - t_start_wall:.1f} s after the device check)"
+            for name, job in cpu.items()), flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"device check ({name_power})", flush=True)
 
     print(json.dumps(kernel_record(
         err32, quad_counts, cart_counts,
-        {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts,
+        {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts, **nm_counts,
          **{f"{LINEAR}_{k}": c for k, c in linear_counts.items()}}, times)),
         flush=True)
     print(name_power, flush=True)

@@ -1,20 +1,28 @@
 """ratilqr_tpu_torch — the PyTorch/CUDA port of ratilqr_tpu.
 
 The warm-started iLEQG solver bank, RAT iLQR (the cross-entropy bilevel
-solver) over it and the MPC driver run here in PyTorch, with the TPU
+solver) and RAT iLQR++ (the Nelder-Mead bilevel solver) over it, PETS (the
+cross-entropy method over control sequences) and the MPC driver run here
+in PyTorch, with the TPU
 kernels of their paths rewritten by hand in CUDA C++ for Hopper
 (``csrc/``, built with ``nvcc`` at first use on a CUDA device).  On the CPU
 every kernel runs its plain PyTorch version.  This package never imports
 JAX.
 """
 
-from ratilqr_tpu_torch.config import CrossEntropyConfig, ILEQGConfig
-from ratilqr_tpu_torch.mpc import MPCDriver
-from ratilqr_tpu_torch.ops import integrate_cost, rollout_open_loop
-from ratilqr_tpu_torch.problems import RiskSensitiveProblem, problem_device
+from ratilqr_tpu_torch.config import (CrossEntropyConfig, ILEQGConfig,
+                                      NelderMeadConfig, PETSConfig)
+from ratilqr_tpu_torch.mpc import MPCDriver, plan_without_generator
+from ratilqr_tpu_torch.ops import (integrate_cost, rollout_feedback_noisy,
+                                   rollout_generative, rollout_open_loop,
+                                   rollout_open_loop_noisy)
+from ratilqr_tpu_torch.problems import (GenerativeProblem,
+                                        RiskSensitiveProblem, problem_device)
 from ratilqr_tpu_torch.solvers.ileqg import (ILEQGResult, make_batched_solver,
-                                             solve, solve_bank,
+                                             solve, solve_bank, solve_value,
                                              solve_via_bank)
+from ratilqr_tpu_torch.solvers.nelder_mead import NelderMeadSolver
+from ratilqr_tpu_torch.solvers.pets import PETSSolver
 from ratilqr_tpu_torch.solvers.ratilqr import RATiLQRSolver
 
 __version__ = "0.1.0"

@@ -1,10 +1,13 @@
 """Solver configuration for the PyTorch port.
 
-Copies of :class:`ratilqr_tpu.config.ILEQGConfig` and
-:class:`ratilqr_tpu.config.CrossEntropyConfig` (same fields, defaults and
+Copies of :class:`ratilqr_tpu.config.ILEQGConfig`,
+:class:`ratilqr_tpu.config.CrossEntropyConfig`,
+:class:`ratilqr_tpu.config.NelderMeadConfig` and
+:class:`ratilqr_tpu.config.PETSConfig` (same fields, defaults and
 validation) that import nothing of JAX, so configurations carry across the
 two packages by field name (``convert.config_from_dict``,
-``convert.ce_config_from_dict``).
+``convert.ce_config_from_dict``, ``convert.nm_config_from_dict``,
+``convert.pets_config_from_dict``).
 """
 from __future__ import annotations
 
@@ -110,3 +113,75 @@ class CrossEntropyConfig:
         _check(0 < self.lam < 1, "lam must be in (0, 1)")
         _check(self.num_elite <= self.num_samples,
                "num_elite must be <= num_samples")
+
+
+@dataclasses.dataclass(frozen=True)
+class NelderMeadConfig:
+    """RAT iLQR++ outer Nelder-Mead parameters
+    (``nelder_mead_bilevel_optimization.jl:85-128``).
+
+    ``verbose`` prints the per-iteration simplex traces (the reference's
+    verbose-gated prints, ``nelder_mead_bilevel_optimization.jl:181-249``)
+    on both paths.
+
+    ``refresh_carried_costs`` opts out of the reference's cross-solve
+    c-persistence quirk: ``solve!`` re-computes the simplex vertex costs
+    only when they are missing (``nelder_mead_bilevel_optimization.jl:283,
+    294``), so on every warm MPC re-plan a stale ``c_low`` from the
+    previous state sits on the simplex; fresh costs at the new state never
+    close the gap to it, the vertex-cost-stdev convergence test (ref
+    :306-317) never fires, and the solver runs all ``iter_max`` iterations
+    per re-plan.  With ``True`` the carried vertex costs are discarded and
+    re-evaluated at the incoming ``(x0, u_init)`` through the feasibility
+    bootstrap, and warm re-plans converge in a few iterations.  Default
+    ``False`` for decision-for-decision reference parity.
+
+    ``speculation_depth`` (single-call path only) evaluates that many NM
+    iterations' candidate trees as ONE iLEQG bank per round.  An NM step
+    can only ever query 6 θs computable up front from the sorted simplex;
+    chaining the hypotheses over the 6 possible new vertices × 2 sort
+    orders gives 6 / 78 / 942 lanes at depth 1 / 2 / 3.  On the card a
+    942-lane bank of a small model is one partly filled launch of each
+    kernel, so depth 3 buys three sequentially dependent rounds for about
+    the time of one.  The decision replay is exact, so results are equal
+    at any depth.  On the CPU the speculative lanes are real work: keep 1.
+    """
+    alpha: float = 1.0    # reflection
+    beta: float = 2.0     # expansion
+    gamma: float = 0.5    # contraction
+    eps: float = 1e-2     # convergence on vertex-cost stdev
+    lam: float = 0.5      # feasibility-bootstrap shrink factor
+    iter_max: int = 100
+    theta_high_init: float = 3.0
+    theta_low_init: float = 1e-8
+    refresh_carried_costs: bool = False
+    speculation_depth: int = 1
+    verbose: bool = False
+    ileqg: ILEQGConfig = ILEQGConfig()
+
+    def __post_init__(self):
+        _check(1 <= self.speculation_depth <= 3,
+               "speculation_depth must be in {1, 2, 3} (6, 78 or 942 "
+               "lanes a speculation bank)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PETSConfig:
+    """PETS (CEM over control sequences) parameters (``pets.jl:35-68``).
+
+    ``scan_unroll`` is accepted for configuration parity with the JAX
+    package; the port's rollout is a Python loop over the horizon, so it
+    changes nothing (as ``ILEQGConfig.scan_unroll``).
+    """
+    num_control_samples: int = 10
+    num_trajectory_samples: int = 10
+    num_elite: int = 3
+    iter_max: int = 5
+    smoothing_factor: float = 0.1
+    scan_unroll: int = 1
+
+    def __post_init__(self):
+        _check(0.0 <= self.smoothing_factor <= 1.0,
+               "smoothing_factor must be in [0, 1]")
+        _check(self.num_elite <= self.num_control_samples,
+               "num_elite must be <= num_control_samples")

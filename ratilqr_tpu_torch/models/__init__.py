@@ -1,3 +1,4 @@
 from ratilqr_tpu_torch.models.examples import (cartpole, double_integrator,
-                                               lqr_problem, nonlinear_toy,
-                                               quadrotor, unicycle)
+                                               gmm_integrator, lqr_problem,
+                                               nonlinear_toy, quadrotor,
+                                               unicycle)

@@ -15,7 +15,7 @@ from ratilqr_tpu_torch.ops.tile_model import (cartpole_tile_model,
                                               lqr_tile_model,
                                               quadrotor_tile_model,
                                               unicycle_tile_model)
-from ratilqr_tpu_torch.problems import RiskSensitiveProblem
+from ratilqr_tpu_torch.problems import GenerativeProblem, RiskSensitiveProblem
 
 
 def _const_W(mat, dtype, device):
@@ -172,3 +172,40 @@ def quadrotor(N: int = 50, dt: float = 0.02, noise: float = 1e-5,
     return RiskSensitiveProblem(
         f=f, c=c, h=h, W=_const_W(noise * np.eye(12), dtype, device), N=N,
         tile_model=quadrotor_tile_model(dt, grav, goal))
+
+
+def gmm_integrator(N: int = 10, dtype=torch.float64, device="cuda"
+                   ) -> GenerativeProblem:
+    """Generative 2-D integrator with model mismatch
+    (``optimal_control_problems.jl:102-116``): the solver's internal model
+    adds ``w ~ N(0, 0.5 I)``, the true simulator the mixture ``0.5·N(0,
+    0.5 I) + 0.5·N(1, I)``.  A lane's noise is ``(z, pick)``: a standard
+    normal ``z`` and a fair Bernoulli ``pick`` choosing the mixture's
+    second component (used by the true model only).  ``dtype`` is that of
+    the states the solvers pass (the JAX constructor's argument)."""
+    sqrt_half = 0.5 ** 0.5
+
+    def f_stochastic(x, u, noise, use_true_model=False):
+        z, pick = noise
+        if use_true_model:
+            w = torch.where(pick, 1.0 + z, sqrt_half * z)
+        else:
+            w = sqrt_half * z
+        return x + u + w
+
+    def draw_noise(generator, x, use_true_model=False):
+        dev = generator.device
+        z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                        device=dev)
+        pick = torch.rand(x.shape[0], generator=generator, dtype=x.dtype,
+                          device=dev) < 0.5
+        return z.to(x.device), pick.to(x.device)
+
+    def c(k, x, u):
+        kf = k.to(x.dtype)
+        return kf / 2.0 * (x @ x) + kf / 2.0 * (u @ u)
+
+    return GenerativeProblem(f_stochastic=f_stochastic,
+                             draw_noise=draw_noise, c=c,
+                             h=lambda x: N / 2.0 * (x @ x), N=N,
+                             device=device)

@@ -56,6 +56,14 @@ def make_gaussian_simulator(problem: RiskSensitiveProblem):
     return simulate
 
 
+def plan_without_generator(solve: Callable, **kwargs) -> Callable:
+    """Adapt a planner that draws nothing, e.g.
+    ``NelderMeadSolver.solve`` with ``kl_bound=...`` in ``kwargs``, to
+    :class:`MPCDriver`'s ``plan(x, u_warm, generator)``: the generator is
+    ignored."""
+    return lambda x, u_warm, generator: solve(x, u_warm, **kwargs)
+
+
 def _sync(x: Tensor) -> None:
     if x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
@@ -69,8 +77,9 @@ class MPCDriver:
       problem: the planning problem (the solver's model).
       plan: ``plan(x, u_warm, generator) -> result`` where ``result`` has
         ``.x``, ``.l``, ``.L`` and ``.value``; ``RATiLQRSolver.solve``
-        (with ``kl_bound`` bound) satisfies it.  Warm-start solver state
-        lives inside the planner.
+        (with ``kl_bound`` bound) satisfies it, and
+        :func:`plan_without_generator` adapts ``NelderMeadSolver.solve``.
+        Warm-start solver state lives inside the planner.
       simulate: true-world transition ``simulate(k, x, u, generator) ->
         x_next`` (``k`` the closed-loop step index); by default the planning
         model plus noise ``w ~ N(0, W(k))``.

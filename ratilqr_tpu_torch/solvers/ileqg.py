@@ -330,7 +330,7 @@ def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
         x0 = torch.as_tensor(x0, device=dev)
         dtype = x0.dtype
         u_init = torch.as_tensor(u_init, dtype=dtype, device=dev)
-        thetas = torch.as_tensor(thetas).to(dtype=dtype, device=dev)
+        thetas = torch.as_tensor(thetas, dtype=dtype, device=dev)
         Bn = thetas.shape[0]
         if x0.dim() == 1:
             x0 = x0.expand(Bn, -1).contiguous()
@@ -350,9 +350,18 @@ def solve(problem: RiskSensitiveProblem, config: ILEQGConfig, x0, u_init,
           theta) -> ILEQGResult:
     """One solve (``ileqg.jl:635-659``), run as a one-lane bank on the
     problem's device; the result has no lane axis."""
-    res = make_batched_solver(problem, config)(
-        x0, u_init, torch.as_tensor(theta).reshape(1))
+    dev = problem_device(problem)
+    x0 = torch.as_tensor(x0, device=dev)
+    theta = torch.as_tensor(theta, dtype=x0.dtype, device=dev).reshape(1)
+    res = make_batched_solver(problem, config, device=dev)(x0, u_init, theta)
     return ILEQGResult(*(f[0] for f in res))
+
+
+def solve_value(problem: RiskSensitiveProblem, config: ILEQGConfig, x0,
+                u_init, theta) -> Tensor:
+    """Value-only convenience wrapper (the bilevel solvers' worker unit,
+    ``cross_entropy_bilevel_optimization.jl:144-167``)."""
+    return solve(problem, config, x0, u_init, theta).value
 
 
 # The JAX package routes single solves through a one-lane bank to reach its

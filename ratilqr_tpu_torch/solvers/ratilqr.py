@@ -120,7 +120,7 @@ def make_cost_fn(problem: RiskSensitiveProblem, config: CrossEntropyConfig):
 
     def cost_fn(x0, u_init, thetas, kl_bound) -> Tensor:
         x0 = torch.as_tensor(x0, device=dev)
-        thetas = torch.as_tensor(thetas).to(dtype=x0.dtype, device=dev)
+        thetas = torch.as_tensor(thetas, dtype=x0.dtype, device=dev)
         return costs_of(bank(x0, u_init, thetas), thetas, kl_bound)
 
     cost_fn.bank = bank
