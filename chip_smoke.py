@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the iLEQG solver bank on the unicycle, the
 cartpole, the n=12 quadrotor and a problem with no tile model, RAT iLQR,
-RAT iLQR++, PETS and the MPC driver) on one CUDA card.
+RAT iLQR++, PETS, the MPC driver and seed-batched MPC fleets) on one CUDA
+card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
@@ -21,8 +22,9 @@ Phases (each prints a line and raises on failure):
      problem at (6, 3), T=20, kernels A and B on the n=12 h_fail fixture
      (``kernel_check.H_FAIL``), kernel A's slim optimizing pass and
      kernel D (a shared and a per-lane noise model) on the quadrotor at
-     B=262,144 in float32, the θ = 1e6 lanes latching m_fail and the
-     h_fail fixtures' lanes h_fail;
+     B=262,144 in float32, kernels A and C on the unicycle T=30 at the
+     fleets' widths (B=256 and 640), the θ = 1e6 lanes latching m_fail and
+     the h_fail fixtures' lanes h_fail;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -45,16 +47,17 @@ Phases (each prints a line and raises on failure):
      flags (their composition: kernels A and D) and with the folded
      candidate evaluation (A and D), 64 lanes of each against the CPU in
      float64, and one bank from numpy inputs on a problem on the card;
-  7. the RAT iLQR path: ``MPCDriver`` re-planning the unicycle (T=100,
-     f32) three times through ``RATiLQRSolver`` and through the single-call
-     ``ratilqr_jit.solve``, on the folded candidate evaluation (kernel D)
+  7. the RAT iLQR path: ``MPCDriver`` planning the unicycle (T=100,
+     f32) twice (cold, then warm) through ``RATiLQRSolver`` and through
+     the single-call ``ratilqr_jit.solve``, on the folded candidate evaluation (kernel D)
      and the fused step (kernel B), with the launch counts read around
      each path;
   7b. the RAT iLQR++ path: ``MPCDriver`` re-planning the unicycle (T=30,
      f32, inner ``iter_max=30`` with the fused candidate: kernels A and C)
-     three times through each entry point — the host path with
-     ``refresh_carried_costs`` (one-lane banks), the single-call path at
-     reference semantics and with refresh, both at speculation depth 3 —
+     through each entry point — once on the host path with
+     ``refresh_carried_costs`` (one-lane banks) and on the single-call
+     path at reference semantics, twice on the single-call path with
+     refresh, both at speculation depth 3 —
      with each re-plan's θ_opt, NM iterations, banks and their widths,
      host syncs and launches; whether the single-call path's carried final
      lane equals a fresh one-lane solve in f32; then one cold solve in
@@ -68,11 +71,20 @@ Phases (each prints a line and raises on failure):
      profiled under both models; then the uniform PETS fixture in float64
      on the card and on the CPU with the same control draws (μ, Σ within
      1e-12);
+  8c. MPC fleets (``mpc_episode``, seeds as bank lanes; the unicycle at
+     T=30, f32, kernels A + C): the iLEQG fleet of 256 seeds x 15 steps
+     timed (median of 3) with its host syncs, launches and (over its
+     first step) idle share, a host-loop comparator, and seeds 0-3 against
+     one-seed episodes under the f32 rule; the RAT iLQR fleet of 64 seeds
+     (banks of 640 lanes) over 2 steps; both fleets in float64 on the card
+     and on the CPU with the same generators; the RAT fleet's state
+     through a checkpoint, continued bit for bit; ``ILEQGBankServer`` on
+     5,000 requests against one direct bank, bit for bit;
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144; T=30 at
-     RAT iLQR++'s widths B=1 and 942), the quadrotor and the cartpole
-     (B=16,384 and 262,144); warm solves/s.
-The CPU halves of the card-vs-CPU checks (phases 5, 6, 6b, 7b and 8)
+     RAT iLQR++'s widths B=1 and 942), the quadrotor (B=16,384 and
+     262,144) and the cartpole (B=16,384); warm solves/s.
+The CPU halves of the card-vs-CPU checks (phases 5, 6, 6b, 7b, 8 and 8c)
 depend on nothing the card computes: they run from the start in
 ``CPU_WORKERS`` spawned worker processes while the card works, and the
 script prints how long each took and when it ended.  The line before the
@@ -83,25 +95,32 @@ import concurrent.futures
 import itertools
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGConfig, MPCDriver,
-                               NelderMeadConfig, PETSConfig, RATiLQRSolver,
-                               kernel_check, make_batched_solver,
-                               plan_without_generator, tests_support)
+from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGBankServer,
+                               ILEQGConfig, MPCDriver, NelderMeadConfig,
+                               PETSConfig, RATiLQRSolver, kernel_check,
+                               load_state, make_batched_solver,
+                               make_episode_runner, make_fleet_runner,
+                               make_gaussian_simulator, make_ileqg_plan,
+                               make_ratilqr_plan, plan_without_generator,
+                               save_state, tests_support)
 from ratilqr_tpu_torch.models import (cartpole, gmm_integrator, quadrotor,
                                       unicycle)
 from ratilqr_tpu_torch.ops import _build, riccati_cuda, tile_model
-from ratilqr_tpu_torch.solvers import (nelder_mead, nelder_mead_jit, pets,
-                                       ratilqr, ratilqr_jit)
+from ratilqr_tpu_torch.solvers import (ileqg, nelder_mead, nelder_mead_jit,
+                                       pets, ratilqr, ratilqr_jit)
 from ratilqr_tpu_torch.solvers.ratilqr import solve_one
 from ratilqr_tpu_torch.utils.profiling import (count_host_syncs,
-                                                device_busy)
+                                                device_busy, time_fn)
+from ratilqr_tpu_torch.utils.tree import tree_map
 
 T = 100
 B_MAIN = 16_384
@@ -133,7 +152,7 @@ RAT_CONFIG = CrossEntropyConfig(
     num_samples=10, num_elite=3, iter_max=5, mu_init=0.005, sigma_init=0.01,
     ileqg=RAT_INNER)
 KL_BOUND = 0.05
-N_REPLANS = 3   # kept small: the cold re-plan alone takes 20-30 s
+N_REPLANS = 2   # cut for the time limit: the cold re-plan alone takes 20-30 s
 B_CE = 16_384   # one CE generation at the bank size of the bank's path
 # RAT iLQR++ (benchmarks/run_all.py:121-182): the unicycle at T=30 in f32,
 # inner iter_max=30 with the fused candidate (kernels A + C), kl_bound 0.05.
@@ -141,16 +160,44 @@ NM_T = 30
 NM_KL = 0.05
 NM_INNER = ILEQGConfig(iter_max=30, fused_candidate_eval=True)
 NM_KERNELS = ("riccati", "candidate")
-NM_PATHS = {   # name: (solve, refresh_carried_costs, speculation_depth)
-    "nm_host_refresh": (nelder_mead.solve, True, 1),
-    "nm_single_d3": (nelder_mead_jit.solve, False, 3),
-    "nm_single_refresh_d3": (nelder_mead_jit.solve, True, 3),
+NM_PATHS = {   # name: (solve, refresh_carried_costs, speculation_depth,
+               #        re-plans; cut for the time limit: the host path's
+               #        one-lane banks take ~50 s a re-plan, and the third
+               #        re-plan at reference semantics ~60 s, 100 NM
+               #        iterations on a stale c_low)
+    "nm_host_refresh": (nelder_mead.solve, True, 1, 1),
+    "nm_single_d3": (nelder_mead_jit.solve, False, 3, 1),
+    "nm_single_refresh_d3": (nelder_mead_jit.solve, True, 3, 2),
 }
 NM_WIDTHS = (1, 942)   # the kernels' widths timed on the NM path
 # PETS, the JAX bench's pets_16k cell (benchmarks/run_all.py:255-275).
 PETS_T = 50
 PETS_CONFIG = PETSConfig(num_control_samples=1024, num_trajectory_samples=16,
                          num_elite=32, iter_max=5)
+# MPC fleets, benchmarks/run_all.py:178-252: the unicycle at T=30 in f32,
+# x0 = 0, u0 = 0, the Gaussian simulator, inner iter_max=30 with the fused
+# candidate (kernels A + C); seeds are bank lanes.
+FLEET_T = 30
+FLEET_CONFIG = ILEQGConfig(iter_max=30, eps_history_cap=0,
+                           fused_candidate_eval=True)
+FLEET_KERNELS = ("riccati", "candidate")
+FLEET_SEEDS, FLEET_STEPS = 256, 15       # iLEQG at θ = 0
+FLEET_PROFILED = 1       # steps of the profiled run (idle share)
+FLEET_CHECKED = (4, 2)   # seeds 0-3 against one-seed episodes, 2 steps
+RAT_FLEET_CONFIG = CrossEntropyConfig(num_samples=10, iter_max=5,
+                                      mu_init=0.005, sigma_init=0.01,
+                                      ileqg=FLEET_CONFIG)
+RAT_FLEET_SEEDS = 64
+RAT_FLEET_STEPS = 2      # run_all.py runs 10; cut for the time limit
+FLEET_KL = 0.05
+FLEET64 = {"ileqg": (8, 3), "ratilqr": (4, 2)}   # (seeds, steps), f64
+# The widths of the fleets' banks (seeds; seeds x CE samples), at which
+# phase 3 also holds kernels A and C against their plain versions.
+FLEET_WIDTHS = (FLEET_SEEDS,
+                RAT_FLEET_SEEDS * RAT_FLEET_CONFIG.num_samples)
+# The bank server on the unicycle bench configuration (bench.py:108-111).
+SERVE_REQUESTS = 5_000
+SERVE_BANK = 2_048
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "riccati": ("ratilqr_tpu_torch/csrc/riccati.cu",
                 "ratilqr_tpu/ops/riccati_pallas.py:193"),
@@ -328,6 +375,13 @@ def check_kernels(device):
                                            (kernel_check.H_FAIL, QUAD_T)]:
                 keep("step", kernel_check.check_step(model, horizon, B, dtype,
                                                      device))
+        for B in FLEET_WIDTHS:   # the fleets' path: kernels A and C
+            for variant in kernel_check.RICCATI_VARIANTS:
+                keep("riccati", kernel_check.check_riccati(
+                    "unicycle", FLEET_T, B, dtype, device, **variant))
+            keep("candidate", kernel_check.check_candidate(
+                "unicycle", FLEET_T, B, dtype, device))
+            kernel_check.clear_caches()
         f32 = dtype == torch.float32
         if f32:
             keep("riccati", kernel_check.check_riccati_wide(
@@ -341,7 +395,9 @@ def check_kernels(device):
         print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7, "
               f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D), "
               f"{LINEAR} T={LINEAR_T} (A, D) and the h_fail fixture (A, B), "
-              f"B=1, B=5 and B=4099"
+              f"B=1, B=5 and B=4099; the unicycle T={FLEET_T} at the "
+              f"fleets' widths B={FLEET_WIDTHS[0]} and B={FLEET_WIDTHS[1]} "
+              f"(A, C)"
               + (f", A's slim optimizing pass and D (shared and per-lane W)"
                  f" on the quadrotor at B={B_WIDE}" if f32 else "") + ", "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
@@ -777,9 +833,11 @@ def rat_mpc(device):
                   + (", redraws exhausted" if res.redraws_exhausted else ""),
                   flush=True)
         lat = sorted(s.plan_time_s for s in steps[1:])
-        print(f"RAT iLQR {name}: warm re-plan p50 "
-              f"{lat[len(lat) // 2] * 1e3:.1f} ms over re-plans 1-"
-              f"{N_REPLANS - 1} (host clock, device synchronized); "
+        warm = (f"warm re-plan p50 {lat[len(lat) // 2] * 1e3:.1f} ms over "
+                f"re-plans 1-{N_REPLANS - 1}, " if lat else "")
+        print(f"RAT iLQR {name}: {warm}cold "
+              f"{steps[0].plan_time_s * 1e3:.1f} ms (host clock, device "
+              f"synchronized); "
               f"launch counts {counts}", flush=True)
         for kernel in RAT_KERNELS:
             assert counts.get(kernel, 0) > 0, f"{name}: {kernel} never ran"
@@ -801,8 +859,9 @@ def widths_text(widths) -> str:
 
 
 def nm_mpc(device):
-    """Phase 7b: N_REPLANS MPC re-plans through each entry point of
-    ``NM_PATHS``, each re-plan's banks, host syncs and launches read
+    """Phase 7b: MPC re-plans through each entry point of ``NM_PATHS``
+    (their number is the path's), each re-plan's banks, host syncs and
+    launches read
     around it; then whether the single-call path's carried final lane
     equals a fresh one-lane solve.  Returns the launch counts per path."""
     f32 = torch.float32
@@ -810,7 +869,7 @@ def nm_mpc(device):
     x0 = torch.zeros(3, dtype=f32, device=device)
     u0 = torch.zeros((NM_T, 2), dtype=f32, device=device)
     counts = {}
-    for name, (solve, refresh, depth) in NM_PATHS.items():
+    for name, (solve, refresh, depth, replans) in NM_PATHS.items():
         config = nm_config(refresh, depth)
         state = {"s": nelder_mead.init_state(config)}
         records = []
@@ -819,7 +878,7 @@ def nm_mpc(device):
                     state=state, records=records):
             before = dict(_build.launch_counts)
             with count_host_syncs() as syncs, \
-                    nelder_mead.record_banks() as widths:
+                    ileqg.record_banks() as widths:
                 res = solve(prob, config, state["s"], x, u,
                             kl_bound=kl_bound)
             state["s"] = res.state
@@ -831,7 +890,7 @@ def nm_mpc(device):
         _build.reset_launch_counts()
         steps = MPCDriver(prob, plan_without_generator(
             counted, kl_bound=NM_KL)).run(
-                x0, u0, torch.Generator().manual_seed(0), N_REPLANS)
+                x0, u0, torch.Generator().manual_seed(0), replans)
         counts[name] = dict(_build.launch_counts)
         for k, (step, (res, syncs, widths, launches)) in enumerate(
                 zip(steps, records)):
@@ -846,11 +905,11 @@ def nm_mpc(device):
                   f"{launches['riccati']} candidate {launches['candidate']},"
                   f" plan {step.plan_time_s * 1e3:.1f} ms", flush=True)
         lat = sorted(s.plan_time_s for s in steps[1:])
-        print(f"RAT iLQR++ {name}: warm re-plan p50 "
-              f"{lat[len(lat) // 2] * 1e3:.1f} ms over re-plans 1-"
-              f"{N_REPLANS - 1}, cold {steps[0].plan_time_s * 1e3:.1f} ms "
-              f"(host clock, device synchronized); launch counts "
-              f"{counts[name]}", flush=True)
+        warm = (f"warm re-plan p50 {lat[len(lat) // 2] * 1e3:.1f} ms over "
+                f"re-plans 1-{replans - 1}, " if lat else "")
+        print(f"RAT iLQR++ {name}: {warm}cold "
+              f"{steps[0].plan_time_s * 1e3:.1f} ms (host clock, device "
+              f"synchronized); launch counts {counts[name]}", flush=True)
         expect_path(name, counts[name], NM_KERNELS)
         if solve is nelder_mead_jit.solve:
             # The cold re-plan's result is θ_low's carried lane: does a
@@ -1042,19 +1101,298 @@ def ce_generation(device, name_power, job):
           f"cost max rel diff {rel:.3e}", flush=True)
 
 
+def seed_generators(n: int, first: int = 0):
+    """One CPU generator a seed, seeded ``first``, ``first + 1``, ..."""
+    return [torch.Generator().manual_seed(first + s) for s in range(n)]
+
+
+def ileqg_fleet(prob, steps):
+    return make_fleet_runner(make_ileqg_plan(prob, FLEET_CONFIG, 0.0),
+                             make_gaussian_simulator(prob), steps, prob.c)
+
+
+def rat_fleet(prob, steps, plan=None):
+    return make_fleet_runner(
+        plan or make_ratilqr_plan(prob, RAT_FLEET_CONFIG, FLEET_KL),
+        make_gaussian_simulator(prob), steps, prob.c)
+
+
+def f32_noise_world(prob):
+    """The Gaussian world of ``prob`` (float64) fed the float32 draws a
+    float32 fleet's world takes from the same generators."""
+    f = torch.func.vmap(prob.f)
+
+    def simulate(k, x, u, generators):
+        chol = torch.linalg.cholesky(prob.W(k))
+        z = torch.stack([torch.randn(x.shape[1:], generator=g,
+                                     dtype=torch.float32)
+                         for g in generators]).to(x.device, x.dtype)
+        return f(x, u) + torch.einsum("ij,sj->si", chol, z)
+
+    return simulate
+
+
+def fleet_ileqg(device, name_power):
+    """Phase 8c, first part: the iLEQG fleet at full width (FLEET_SEEDS x
+    FLEET_STEPS), timed by ``time_fn`` (median of 3), its warm-up run
+    with the launch and host-sync counts read around it, and the first
+    FLEET_PROFILED steps profiled; the host-loop comparator; seeds 0-3
+    against one-seed episodes under the f32 rule.  Returns the launch
+    counts."""
+    f32 = torch.float32
+    prob = unicycle(N=FLEET_T, dtype=f32, device=device)
+    x0 = torch.zeros(3, dtype=f32, device=device)
+    u0 = torch.zeros((FLEET_T, 2), dtype=f32, device=device)
+    run = ileqg_fleet(prob, FLEET_STEPS)
+    first = {}
+
+    def episodes():
+        """The fleet; its first run (time_fn's warm-up) with the launches
+        and host syncs counted around it."""
+        if first:
+            return run(x0, u0, seed_generators(FLEET_SEEDS))
+        _build.reset_launch_counts()
+        with count_host_syncs() as syncs:
+            out = run(x0, u0, seed_generators(FLEET_SEEDS))
+        first.update(out=out, syncs=syncs.n,
+                     launched=dict(_build.launch_counts))
+        return out
+
+    stats = time_fn(episodes, warmup=1, reps=3)
+    out, launched = first["out"], first["launched"]
+    expect_path("iLEQG fleet", launched, FLEET_KERNELS)
+    assert out.xs.shape == (FLEET_SEEDS, FLEET_STEPS + 1, 3)
+    assert bool(torch.isfinite(out.xs).all()) and bool(
+        torch.isfinite(out.values).all()), "iLEQG fleet: non-finite"
+    # The profiler's post-processing of a whole fleet's events takes
+    # ~60 s, so the idle share is read over its first FLEET_PROFILED
+    # steps (the cold start, whose banks run the most rounds).
+    _, wall, busy = device_busy(lambda: ileqg_fleet(prob, FLEET_PROFILED)(
+        x0, u0, seed_generators(FLEET_SEEDS)))
+    med = stats["median"]
+    print(f"iLEQG fleet unicycle T={FLEET_T} f32, {FLEET_SEEDS} seeds x "
+          f"{FLEET_STEPS} steps (one bank of {FLEET_SEEDS} lanes a step): "
+          f"{FLEET_SEEDS / med:.3f} episodes/s, "
+          f"{FLEET_SEEDS * FLEET_STEPS / med:.2f} re-plans/s (median of 3 "
+          f"by time_fn: {med:.3f} s a fleet, best {stats['best']:.3f} s, "
+          f"first call {stats['compile']:.3f} s, host syncs counted); "
+          f"{first['syncs'] / FLEET_STEPS:.1f} host syncs a step; profiled "
+          f"run of steps 0-{FLEET_PROFILED - 1} {wall:.3f} s wall, device "
+          f"busy {busy * 1e3:.1f} ms, idle share {1 - busy / wall:.4f}; "
+          f"launches riccati "
+          f"{launched.get('riccati', 0)} candidate "
+          f"{launched.get('candidate', 0)}; mean total cost "
+          f"{float(out.total_cost.mean()):.6f} ({name_power})", flush=True)
+
+    steps = 3   # the host-loop comparator: one seed through MPCDriver
+    driver = MPCDriver(prob, lambda x, u, g: ileqg.solve(
+        prob, FLEET_CONFIG, x, u, 0.0))
+    _, secs = sync_time(lambda: driver.run(x0, u0, seed_generators(1)[0],
+                                           steps))
+    host_eps = 1.0 / (secs / steps * FLEET_STEPS)
+    print(f"iLEQG host loop (MPCDriver, one seed, {steps} steps scaled to "
+          f"{FLEET_STEPS}): {host_eps:.4f} episodes/s, "
+          f"{steps / secs:.3f} re-plans/s; the fleet "
+          f"{FLEET_SEEDS / med / host_eps:.1f}x its episodes/s "
+          f"({name_power})", flush=True)
+
+    # Seeds 0-3 against one-seed episodes with the same generators, and
+    # the f32 rule's reference: the same episodes in float64.
+    S, k = FLEET_CHECKED
+    one = make_episode_runner(make_ileqg_plan(prob, FLEET_CONFIG, 0.0),
+                              make_gaussian_simulator(prob), k, prob.c)
+    eps = [one(x0, u0, torch.Generator().manual_seed(s)) for s in range(S)]
+    prob64 = unicycle(N=FLEET_T, dtype=torch.float64, device=device)
+    ref = make_fleet_runner(make_ileqg_plan(prob64, FLEET_CONFIG, 0.0),
+                            f32_noise_world(prob64), k, prob64.c)(
+        x0.double(), u0.double(), seed_generators(S))
+    lanes = torch.ones(S, dtype=torch.bool, device=device)
+    theta = torch.zeros(S, device=device)
+    traj = kernel_check.TOL[f32]["traj"]
+    errs = {}
+    for name, got in (("xs", out.xs[:S, :k + 1]), ("us", out.us[:S, :k])):
+        want = torch.stack([getattr(e, name) for e in eps])
+        tol, drift = kernel_check._drift_atol(want, getattr(ref, name),
+                                              lanes, theta, traj["atol"])
+        errs[name] = (kernel_check._close(
+            f"iLEQG fleet {name}, seeds 0-{S - 1}", got, want, lanes,
+            traj["rtol"], tol), float(tol.max()), drift)
+    print(f"iLEQG fleet seeds 0-{S - 1}, steps 0-{k - 1}, against one-seed "
+          f"episodes with the same generators (f32): " + ", ".join(
+              f"max |Δ{name}| {e:.3e} (allowed {a:.3e} + rtol "
+              f"{traj['rtol']}; one-seed f32 vs f64 {d:.3e})"
+              for name, (e, a, d) in errs.items()), flush=True)
+    return launched
+
+
+def fleet_ratilqr(device, name_power):
+    """Phase 8c, second part: the RAT iLQR fleet at full width
+    (RAT_FLEET_SEEDS seeds, banks of RAT_FLEET_SEEDS x num_samples lanes),
+    RAT_FLEET_STEPS steps; returns the launch counts."""
+    f32 = torch.float32
+    prob = unicycle(N=FLEET_T, dtype=f32, device=device)
+    x0 = torch.zeros(3, dtype=f32, device=device)
+    u0 = torch.zeros((FLEET_T, 2), dtype=f32, device=device)
+    plan = make_ratilqr_plan(prob, RAT_FLEET_CONFIG, FLEET_KL)
+    marks = []
+
+    def plan_step(*args):
+        marks.append(len(widths))
+        return plan(*args)
+
+    run = rat_fleet(prob, RAT_FLEET_STEPS, plan_step)
+    _build.reset_launch_counts()
+    with ileqg.record_banks() as widths, count_host_syncs() as syncs:
+        out, secs = sync_time(lambda: run(
+            x0, u0, seed_generators(RAT_FLEET_SEEDS),
+            ratilqr.init_state(RAT_FLEET_CONFIG, f32)))
+    launched = dict(_build.launch_counts)
+    expect_path("RAT iLQR fleet", launched, FLEET_KERNELS)
+    theta = out.aux["theta_opt"]
+    assert bool(torch.isfinite(out.values).all()) and bool(
+        (theta > 0).all()), "RAT iLQR fleet: an infeasible or θ = 0 plan"
+    marks.append(len(widths))
+    for k in range(RAT_FLEET_STEPS):
+        step = widths[marks[k]:marks[k + 1]]
+        print(f"RAT iLQR fleet step {k}: {len(step)} banks "
+              f"({widths_text(step)})", flush=True)
+    n = RAT_FLEET_SEEDS * RAT_FLEET_STEPS
+    print(f"RAT iLQR fleet unicycle T={FLEET_T} f32, {RAT_FLEET_SEEDS} "
+          f"seeds x {RAT_FLEET_STEPS} steps (benchmarks/run_all.py runs 10 "
+          f"steps; cut to {RAT_FLEET_STEPS} for time), CE "
+          f"{RAT_FLEET_CONFIG.num_samples} samples x "
+          f"{RAT_FLEET_CONFIG.iter_max} generations, kl_bound {FLEET_KL}: "
+          f"{secs:.3f} s, {n / secs:.3f} re-plans/s, "
+          f"{RAT_FLEET_SEEDS / secs:.4f} episodes/s of {RAT_FLEET_STEPS} "
+          f"steps (one run, host clock, device synchronized); mean θ_opt "
+          f"{float(theta.double().mean()):.6g}; {syncs.n / RAT_FLEET_STEPS:.1f} "
+          f"host syncs a step; launches riccati "
+          f"{launched.get('riccati', 0)} candidate "
+          f"{launched.get('candidate', 0)} ({name_power})", flush=True)
+    return launched
+
+
+def fleets64(device) -> dict:
+    """The float64 fleets of FLEET64 on ``device``, with CPU generators:
+    ``{"ileqg": EpisodeResult, "ratilqr": EpisodeResult}`` on the CPU.
+    The unicycle with closed-form Jacobians keeps the CPU runs short."""
+    f64 = torch.float64
+    prob = unicycle(N=FLEET_T, dtype=f64, device=device,
+                    analytic_jacobians=True)
+    x0 = torch.zeros(3, dtype=f64, device=device)
+    u0 = torch.zeros((FLEET_T, 2), dtype=f64, device=device)
+    S, k = FLEET64["ileqg"]
+    il = ileqg_fleet(prob, k)(x0, u0, seed_generators(S))
+    S, k = FLEET64["ratilqr"]
+    rat = rat_fleet(prob, k)(x0, u0, seed_generators(S),
+                             ratilqr.init_state(RAT_FLEET_CONFIG))
+    return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                    {"ileqg": il, "ratilqr": rat})
+
+
+def cpu_fleets():
+    return fleets64(torch.device("cpu"))
+
+
+def fleet_f64_parity(device, job):
+    """Phase 8c, third part: the float64 fleets on the card against the
+    CPU (the same CPU generators on both sides): xs, us and values within
+    1e-9, θ_opt equal; then the RAT fleet's final plan_state through a
+    checkpoint: its continuation equals the live state's bit for bit."""
+    card, cpu = fleets64(device), job.result()[0]
+    for name, (S, k) in FLEET64.items():
+        diffs = {}
+        for field in ("xs", "us", "values"):
+            a, b = getattr(card[name], field), getattr(cpu[name], field)
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9,
+                                       msg=f"{name} fleet {field}")
+            diffs[field] = float((a - b).abs().max())
+        extra = ""
+        if name == "ratilqr":
+            a, b = card[name].aux["theta_opt"], cpu[name].aux["theta_opt"]
+            assert torch.equal(a, b), f"θ_opt differ: {a} {b}"
+            extra = f"; θ_opt equal ({a.flatten().tolist()})"
+        print(f"{name} fleet f64, {S} seeds x {k} steps, card against CPU "
+              "(same CPU generators): " + ", ".join(
+                  f"max |Δ{f}| {d:.3e}" for f, d in diffs.items())
+              + f" (within 1e-9){extra}", flush=True)
+
+    live = card["ratilqr"].plan_state
+    f64 = torch.float64
+    prob = unicycle(N=FLEET_T, dtype=f64, device=device,
+                    analytic_jacobians=True)
+    S = FLEET64["ratilqr"][0]
+    x = card["ratilqr"].xs[:, -1].to(device)
+    u0 = torch.zeros((FLEET_T, 2), dtype=f64, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet_state.npz")
+        save_state(path, live)
+        restored = load_state(path, live)
+    run = rat_fleet(prob, 1)
+    a = run(x, u0, seed_generators(S, 100), live)
+    b = run(x, u0, seed_generators(S, 100), restored)
+    for field in ("xs", "us", "values", "total_cost"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+    assert torch.equal(a.aux["theta_opt"], b.aux["theta_opt"])
+    assert all(torch.equal(p, q) for p, q in zip(a.plan_state,
+                                                 b.plan_state))
+    print(f"RAT iLQR fleet checkpoint: the {S}-seed final plan_state saved "
+          "and loaded; a 1-step continuation from it equals the live "
+          "state's bit for bit (xs, us, values, θ_opt, plan_state)",
+          flush=True)
+
+
+def serving_phase(device, name_power):
+    """Phase 8c, last part: ``ILEQGBankServer`` (bank_size SERVE_BANK) on
+    SERVE_REQUESTS requests of the unicycle bench configuration, every lane
+    against one direct bank on the same requests, bit for bit."""
+    f32 = torch.float32
+    prob = unicycle(N=T, dtype=f32, device=device)
+    R = SERVE_REQUESTS
+    x0s = (0.1 * torch.randn((R, 3), generator=torch.Generator()
+                             .manual_seed(3))).to(device)
+    u0s = torch.zeros((R, T, 2), dtype=f32, device=device)
+    thetas = torch.linspace(0.0, 0.02, R, dtype=f32, device=device)
+    server = ILEQGBankServer(prob, BENCH_CONFIG, bank_size=SERVE_BANK,
+                             depth=2)
+    with ileqg.record_banks() as widths:
+        got, secs = sync_time(lambda: server.solve_batch(x0s, u0s, thetas))
+    direct, direct_secs = sync_time(lambda: make_batched_solver(
+        prob, BENCH_CONFIG)(x0s, u0s, thetas))
+    for name, a, b in zip(direct._fields, got, direct):
+        assert a.shape[0] == R and torch.equal(a, b.cpu()), (
+            f"server {name} differs from the direct bank")
+    print(f"bank server unicycle T={T} f32 bench configuration: {R} "
+          f"requests in {len(widths)} banks of {SERVE_BANK} (the last "
+          f"padded from {R - (len(widths) - 1) * SERVE_BANK}), "
+          f"{int(got.failed.sum())} failed; every lane equals one direct "
+          f"bank of {R} bit for bit; {R / secs:.1f} solves/s ({secs:.3f} s;"
+          f" the direct bank {R / direct_secs:.1f} solves/s), host clock "
+          f"({name_power})", flush=True)
+
+
+def fleets_phase(device, name_power, job):
+    """Phase 8c: MPC fleets, the checkpoint and the bank server; returns
+    the launch counts of the two fleet paths."""
+    counts = {"fleet_ileqg": fleet_ileqg(device, name_power),
+              "fleet_ratilqr": fleet_ratilqr(device, name_power)}
+    fleet_f64_parity(device, job)
+    serving_phase(device, name_power)
+    return counts
+
+
 def timings(device, name_power):
     """Phase 9: returns {(model, B): {kernel: record}} with each kernel's
     wrapper, launch-alone and plain times and its bound."""
     f32 = torch.float32
     result = {}
-    # The kernel record's widths, and both for the quadrotor and the
-    # cartpole; the unicycle at B=16,384 is left out to keep the run short
-    # (PERF.md keeps its last numbers).
+    # The kernel record's widths, and both for the quadrotor; the unicycle
+    # at B=16,384 and the cartpole at B=262,144 are left out to keep the
+    # run short (PERF.md keeps their last numbers).
     for model, horizon, B in (("unicycle", T, B_WIDE),
                               ("quadrotor", QUAD_T, B_MAIN),
                               ("quadrotor", QUAD_T, B_WIDE),
-                              ("cartpole", CART_T, B_MAIN),
-                              ("cartpole", CART_T, B_WIDE)):
+                              ("cartpole", CART_T, B_MAIN)):
         n, m = MODEL_DIMS[model]
         times = kernel_check.kernel_timings(model, horizon, B, f32, device)
         for kernel, (ms, launch_ms, plain_ms) in times.items():
@@ -1171,7 +1509,7 @@ def main() -> int:
         cpu = {name: pool.submit(timed, fn) for name, fn in (
             ("unicycle", cpu_unicycle), ("quadrotor", cpu_quadrotor),
             ("cartpole", cpu_cartpole), ("linear", cpu_linear),
-            ("nm", cpu_nm), ("ce", cpu_ce))}
+            ("nm", cpu_nm), ("ce", cpu_ce), ("fleets", cpu_fleets))}
         phase("build", build)
         err32 = phase("kernels vs plain", check_kernels, device)
         cold, bank_counts = phase("unicycle bank", main_path, device)
@@ -1191,6 +1529,8 @@ def main() -> int:
               cpu["nm"])
         phase("CE generation", ce_generation, device, name_power, cpu["ce"])
         phase("PETS", pets_phase, device, name_power)
+        fleet_counts = phase("MPC fleets", fleets_phase, device, name_power,
+                             cpu["fleets"])
         times = phase("timings", timings, device, name_power)
         print(f"CPU halves, in {CPU_WORKERS} worker processes: " + ", ".join(
             f"{name} {job.result()[1]:.1f} s (done "
@@ -1204,6 +1544,7 @@ def main() -> int:
     print(json.dumps(kernel_record(
         err32, quad_counts, cart_counts,
         {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts, **nm_counts,
+         **fleet_counts,
          **{f"{LINEAR}_{k}": c for k, c in linear_counts.items()}}, times)),
         flush=True)
     print(name_power, flush=True)

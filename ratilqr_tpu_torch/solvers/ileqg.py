@@ -28,7 +28,8 @@ follows the JAX precedence: ``fused_candidate_eval``, then
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -311,6 +312,22 @@ def solve_bank(problem: RiskSensitiveProblem, config: ILEQGConfig,
                        mu_final=state.mu, failed=state.failed)
 
 
+_recorded_widths: Optional[List[int]] = None
+
+
+@contextlib.contextmanager
+def record_banks():
+    """Record the width of every bank solved in the block (every bank of
+    :func:`make_batched_solver`, e.g. all of a RAT iLQR++ solve's, its
+    final solve included); yields the list."""
+    global _recorded_widths
+    outer, _recorded_widths = _recorded_widths, []
+    try:
+        yield _recorded_widths
+    finally:
+        _recorded_widths = outer
+
+
 def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
                         device=None):
     """θ-bank solver ``(x0, u_init, thetas) -> ILEQGResult`` batched over
@@ -332,6 +349,8 @@ def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
         u_init = torch.as_tensor(u_init, dtype=dtype, device=dev)
         thetas = torch.as_tensor(thetas, dtype=dtype, device=dev)
         Bn = thetas.shape[0]
+        if _recorded_widths is not None:
+            _recorded_widths.append(int(Bn))
         if x0.dim() == 1:
             x0 = x0.expand(Bn, -1).contiguous()
         if u_init.dim() == 2:

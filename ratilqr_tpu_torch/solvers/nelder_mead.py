@@ -10,11 +10,10 @@ one-lane bank on the problem's device (the card's kernels at B=1), whose
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
-from typing import List, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -82,34 +81,12 @@ def init_state(config: NelderMeadConfig) -> NMState:
                    c_high=None, c_low=None, iter_current=0)
 
 
-_recorded_widths: Optional[List[int]] = None
-
-
-@contextlib.contextmanager
-def record_banks():
-    """Record the width of every bank RAT iLQR++ runs in the block (both
-    paths, the final solve included); yields the list."""
-    global _recorded_widths
-    outer, _recorded_widths = _recorded_widths, []
-    try:
-        yield _recorded_widths
-    finally:
-        _recorded_widths = outer
-
-
 @functools.lru_cache(maxsize=32)
 def vertex_bank(problem: RiskSensitiveProblem, config):
     """The θ-bank every RAT iLQR++ solve runs on (one per problem and
     inner configuration, so its noise model is built once across an MPC
     loop)."""
-    bank = make_batched_solver(problem, config)
-
-    def run(x0, u_init, thetas):
-        if _recorded_widths is not None:
-            _recorded_widths.append(int(thetas.shape[0]))
-        return bank(x0, u_init, thetas)
-
-    return run
+    return make_batched_solver(problem, config)
 
 
 def _inputs(problem: RiskSensitiveProblem, x0, u_init):

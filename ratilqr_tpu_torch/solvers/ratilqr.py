@@ -150,45 +150,59 @@ def _update_theta_range(state: CEState, thetas: np.ndarray,
 MAX_REDRAWS = 25
 
 
+def draw_thetas(config: CrossEntropyConfig, state: CEState,
+                generator: torch.Generator) -> Tensor:
+    """One draw of ``num_samples`` θ for the generation ``state`` is in:
+    from ``(μ_init, σ_init)`` in generation 1, else from ``(μ, σ)``."""
+    first = state.iter_current == 1
+    mu_s, sigma_s = ((state.mu_init, state.sigma_init) if first
+                     else (state.mu, state.sigma))
+    return get_positive_samples(generator, mu_s, sigma_s,
+                                config.num_samples, state.mu.dtype)
+
+
+def judge_draw(config: CrossEntropyConfig, state: CEState,
+               num_valid: int):
+    """The verdict on one draw with ``num_valid`` feasible samples
+    (``…:265-305``): ``(state, accepted)``.  In generation 1 too few
+    feasible lanes shrink ``μ_init/σ_init`` by λ and redraw, and an
+    all-feasible draw grows them by 1/λ (both persist to the next MPC
+    cycle, ref :293-305); later generations redraw with unchanged (μ, σ)
+    while too few are feasible."""
+    lam = config.lam
+    threshold = max(config.num_elite, config.num_samples * lam)
+    first = state.iter_current == 1
+    if first and num_valid < threshold:
+        return state._replace(mu_init=state.mu_init * lam,
+                              sigma_init=state.sigma_init * lam), False
+    if first and num_valid == config.num_samples:
+        return state._replace(mu_init=state.mu_init / lam,
+                              sigma_init=state.sigma_init / lam), True
+    return state, num_valid >= threshold
+
+
 def draw_generation(config: CrossEntropyConfig, state: CEState, cost_fn,
                     x0: Tensor, u_init: Tensor, kl_bound: float,
                     generator: torch.Generator, verbose: bool = False):
     """The sampling half of a CE generation (``…:252-312``): draw positive
     θ samples and evaluate them on the bank, redrawing while too few are
-    feasible, with the iteration-1 shrink/grow of ``μ_init/σ_init``
-    (``…:293-305``).  Each draw brings its costs to the host once.
+    feasible (:func:`judge_draw`).  Each draw brings its costs to the host
+    once.
 
     Returns ``(state, thetas, costs, done)`` with host arrays of the last
     draw; ``done`` is False when the ``MAX_REDRAWS`` budget ran out."""
     state = state._replace(iter_current=state.iter_current + 1)
-    dtype = state.mu.dtype
-    lam = config.lam
-    threshold = max(config.num_elite, config.num_samples * lam)
-    first = state.iter_current == 1
     for _ in range(MAX_REDRAWS):
-        mu_s, sigma_s = ((state.mu_init, state.sigma_init) if first
-                         else (state.mu, state.sigma))
-        thetas = get_positive_samples(generator, mu_s, sigma_s,
-                                      config.num_samples, dtype)
+        thetas = draw_thetas(config, state, generator)
         costs = cost_fn(x0, u_init, thetas, kl_bound).cpu().numpy()
         thetas = thetas.cpu().numpy()
         num_valid = int(np.sum(np.isfinite(costs)))
         if verbose:
             print(f"**CE iter {state.iter_current}: "
                   f"{num_valid}/{config.num_samples} valid")
-        if first and num_valid < threshold:
-            # Too few feasible lanes: shrink the warm-start distribution
-            # and redraw (persists to the next MPC cycle, ref :293-298).
-            state = state._replace(mu_init=state.mu_init * lam,
-                                   sigma_init=state.sigma_init * lam)
-            continue
-        if first and num_valid == config.num_samples:
-            state = state._replace(mu_init=state.mu_init / lam,
-                                   sigma_init=state.sigma_init / lam)
+        state, accepted = judge_draw(config, state, num_valid)
+        if accepted:
             return state, thetas, costs, True
-        if num_valid >= threshold:
-            return state, thetas, costs, True
-        # iter > 1 with too few valid: redraw with unchanged (μ, σ).
     return state, thetas, costs, False
 
 

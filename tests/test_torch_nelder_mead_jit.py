@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ratilqr_tpu.solvers import nelder_mead as jnm  # noqa: E402
+from ratilqr_tpu_torch.solvers import ileqg as tileqg  # noqa: E402
 from ratilqr_tpu_torch.solvers import nelder_mead as tnm  # noqa: E402
 from ratilqr_tpu_torch.solvers import nelder_mead_jit as tjit  # noqa: E402
 from test_torch_nelder_mead import (  # noqa: E402,F401
@@ -72,7 +73,7 @@ def test_kl_zero_keeps_costs_missing():
 @pytest.fixture()
 def bank_widths():
     """The width of every bank the block's solves run."""
-    with tnm.record_banks() as widths:
+    with tileqg.record_banks() as widths:
         yield widths
 
 
