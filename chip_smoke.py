@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the iLEQG solver bank on the unicycle, the
 cartpole, the n=12 quadrotor and a problem with no tile model, RAT iLQR,
-RAT iLQR++, PETS, the MPC driver and seed-batched MPC fleets) on one CUDA
-card.
+RAT iLQR++, PETS, the MPC driver, seed-batched MPC fleets and the
+distributed layer) on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
@@ -80,6 +80,14 @@ Phases (each prints a line and raises on failure):
      and on the CPU with the same generators; the RAT fleet's state
      through a checkpoint, continued bit for bit; ``ILEQGBankServer`` on
      5,000 requests against one direct bank, bit for bit;
+  8d. sharded: the distributed layer (``ratilqr_tpu_torch.parallel``) on
+     an NCCL group of one rank in this process — the θ-bank of the bench
+     configuration at B=262,144, PETS at pets_16k through both elite
+     paths, the iLEQG fleet of 256 seeds x 3 steps — and the θ-bank at
+     B=16,384 on two spawned gloo ranks sharing the card, each equal bit
+     for bit to its unsharded run; then the parallel-in-time Riccati DP
+     against kernel A on the unicycle (B=16, T=1,000 and 4,000): float64
+     parity, both times in float64 and float32, the float32 error;
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144; T=30 at
      RAT iLQR++'s widths B=1 and 942), the quadrotor (B=16,384 and
@@ -96,13 +104,17 @@ import itertools
 import json
 import multiprocessing
 import os
+import queue
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGBankServer,
                                ILEQGConfig, MPCDriver, NelderMeadConfig,
@@ -112,9 +124,14 @@ from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGBankServer,
                                make_gaussian_simulator, make_ileqg_plan,
                                make_ratilqr_plan, plan_without_generator,
                                save_state, tests_support)
+from ratilqr_tpu_torch import parallel
 from ratilqr_tpu_torch.models import (cartpole, gmm_integrator, quadrotor,
                                       unicycle)
 from ratilqr_tpu_torch.ops import _build, riccati_cuda, tile_model
+from ratilqr_tpu_torch.ops.approx import Approximation, approximate_model
+from ratilqr_tpu_torch.ops.riccati import dp_optimize
+from ratilqr_tpu_torch.ops.riccati_parallel import dp_optimize_parallel
+from ratilqr_tpu_torch.ops.rollout import rollout_open_loop_with_jac
 from ratilqr_tpu_torch.solvers import (ileqg, nelder_mead, nelder_mead_jit,
                                        pets, ratilqr, ratilqr_jit)
 from ratilqr_tpu_torch.solvers.ratilqr import solve_one
@@ -198,6 +215,16 @@ FLEET_WIDTHS = (FLEET_SEEDS,
 # The bank server on the unicycle bench configuration (bench.py:108-111).
 SERVE_REQUESTS = 5_000
 SERVE_BANK = 2_048
+# The sharded phase: the unicycle bench bank (bench.py:90-117) as a CE
+# θ-bank on an NCCL group of one rank, and at B_MAIN on two gloo ranks
+# sharing the card; the parallel-in-time Riccati DP against kernel A.
+SHARDED_CONFIG = CrossEntropyConfig(ileqg=BENCH_CONFIG)
+SHARDED_FLEET_STEPS = 3
+SHARDED_RANKS = 2
+RANK_TIMEOUT_S = 300
+PDP_LANES = 16
+PDP_HORIZONS = (1_000, 4_000)
+PDP_THETA_MAX = 0.01
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "riccati": ("ratilqr_tpu_torch/csrc/riccati.cu",
                 "ratilqr_tpu/ops/riccati_pallas.py:193"),
@@ -1381,6 +1408,290 @@ def fleets_phase(device, name_power, job):
     return counts
 
 
+def bench_inputs(device, B, u_warm=None):
+    """The bench bank's warm inputs (bench.py:90-117), float32: the
+    problem, x0 + X_MPC, the warm start (by default the schedule of a cold
+    one-lane solve at θ = 0) and θ = linspace(0, 0.02, B)."""
+    f32 = torch.float32
+    prob = unicycle(N=T, dtype=f32, device=device)
+    x0 = torch.zeros(3, dtype=f32, device=device)
+    thetas = torch.linspace(0.0, 0.02, B, dtype=f32, device=device)
+    if u_warm is None:
+        u_warm = ratilqr.make_cost_fn(prob, SHARDED_CONFIG).bank(
+            x0, torch.zeros((T, 2), dtype=f32, device=device),
+            thetas[:1]).l[0]
+    return (prob, x0 + torch.tensor(X_MPC, dtype=f32, device=device),
+            torch.as_tensor(u_warm, device=device), thetas)
+
+
+def counted(fn):
+    """``(fn(), seconds, launch counts)``, the counts set to 0 just before
+    and read just after, the card synchronized around it."""
+    _build.reset_launch_counts()
+    out, secs = sync_time(fn)
+    return out, secs, dict(_build.launch_counts)
+
+
+def assert_equal_trees(name, got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), f"{name}: field {i} differs"
+
+
+def sharded_one_rank(device, name_power):
+    """Phase 8d, first part: an NCCL group of one rank in this process (a
+    ``HashStore``): the sharded θ-bank at B_WIDE, the sharded PETS solve
+    at pets_16k through both elite paths and the sharded iLEQG fleet of
+    FLEET_SEEDS x SHARDED_FLEET_STEPS, each bit for bit equal to its
+    unsharded run; returns the launch counts of the θ-bank and the fleet,
+    and the bank's warm start.
+    """
+    f32 = torch.float32
+    parallel.distributed_initialize(device=device, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh(device=device)
+        backend = dist.get_backend()
+        prob, x_mpc, u_warm, thetas = bench_inputs(device, B_WIDE)
+        sharded = parallel.make_sharded_theta_cost_fn(prob, SHARDED_CONFIG,
+                                                      mesh)
+        plain = ratilqr.make_cost_fn(prob, SHARDED_CONFIG)
+        args = (x_mpc, u_warm, thetas, KL_BOUND)
+        plain(*args)   # warm-up at this width
+        costs, first, bank_counts = counted(lambda: sharded(*args))
+        expect_path("sharded θ-bank", bank_counts, ("step", "candidate"))
+        again, secs = sync_time(lambda: sharded(*args))
+        ref, ref_secs = sync_time(lambda: plain(*args))
+        assert torch.equal(costs, ref) and torch.equal(again, ref), (
+            "sharded θ-bank differs")
+        assert bool(torch.isfinite(costs[1:]).all()), "infeasible θ > 0"
+        print(f"sharded θ-bank ({backend}, 1 rank) unicycle T={T} f32 "
+              f"B={B_WIDE}, bench configuration, warm: equal bit for bit "
+              f"to the unsharded bank; {secs * 1e3:.1f} ms sharded (first "
+              f"call {first * 1e3:.1f} ms, the communicator's set-up "
+              f"included), {ref_secs * 1e3:.1f} ms unsharded (host clock, "
+              f"card synchronized; {name_power}); launches {bank_counts}",
+              flush=True)
+
+        K, M = (PETS_CONFIG.num_control_samples,
+                PETS_CONFIG.num_trajectory_samples)
+        gmm = gmm_integrator(N=PETS_T, dtype=f32, device=device)
+        state = pets.init_state(
+            torch.zeros((PETS_T, 2), dtype=f32, device=device),
+            torch.eye(2, dtype=f32, device=device).expand(PETS_T, 2, 2))
+        x0 = torch.zeros(2, dtype=f32, device=device)
+
+        def gen():
+            return torch.Generator(device=device).manual_seed(0)
+
+        pets.solve(gmm, PETS_CONFIG, x0, state, gen())   # warm-up
+        ref, ref_secs = sync_time(lambda: pets.solve(gmm, PETS_CONFIG, x0,
+                                                     state, gen()))
+        for shard_elites in (False, True):
+            solve = parallel.make_sharded_pets_solve(
+                gmm, PETS_CONFIG, mesh, shard_elites=shard_elites)
+            out, secs = sync_time(lambda: solve(x0, state, gen()))
+            assert_equal_trees(f"sharded PETS (shard_elites={shard_elites})",
+                               out[:2], ref[:2])
+            print(f"sharded PETS ({backend}, 1 rank) gmm_integrator "
+                  f"T={PETS_T} f32 K={K} M={M}, {PETS_CONFIG.iter_max} "
+                  f"generations, shard_elites={shard_elites}: μ, Σ equal "
+                  f"bit for bit to pets.solve; {secs * 1e3:.1f} ms sharded, "
+                  f"{ref_secs * 1e3:.1f} ms unsharded (host clock; "
+                  f"{name_power})", flush=True)
+
+        uni = unicycle(N=FLEET_T, dtype=f32, device=device)
+        x0 = torch.zeros(3, dtype=f32, device=device)
+        u0 = torch.zeros((FLEET_T, 2), dtype=f32, device=device)
+        fleet = parallel.make_sharded_fleet_runner(
+            mesh, make_ileqg_plan(uni, FLEET_CONFIG, 0.0),
+            make_gaussian_simulator(uni), SHARDED_FLEET_STEPS, uni.c)
+        out, secs, fleet_counts = counted(lambda: fleet(
+            x0, u0, seed_generators(FLEET_SEEDS)))
+        expect_path("sharded iLEQG fleet", fleet_counts, FLEET_KERNELS)
+        ref, ref_secs = sync_time(lambda: ileqg_fleet(
+            uni, SHARDED_FLEET_STEPS)(x0, u0, seed_generators(FLEET_SEEDS)))
+        assert_equal_trees("sharded iLEQG fleet", out[:5], ref[:5])
+        assert bool(torch.isfinite(out.xs).all())
+        print(f"sharded iLEQG fleet ({backend}, 1 rank) unicycle "
+              f"T={FLEET_T} f32, {FLEET_SEEDS} seeds x "
+              f"{SHARDED_FLEET_STEPS} steps: xs, us, values, fallbacks, "
+              f"total_cost equal bit for bit to the unsharded fleet; "
+              f"{secs:.3f} s sharded, {ref_secs:.3f} s unsharded (host "
+              f"clock; {name_power}); launches {fleet_counts}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return ({"sharded_theta_bank": bank_counts,
+             "sharded_fleet": fleet_counts}, u_warm)
+
+
+def sharded_rank(rank: int, world: int, port: int, device: str, B: int,
+                 u_warm: np.ndarray, results) -> None:
+    """One rank of the gloo group that shares the card: the sharded θ-bank
+    at B on its block of θ; reports ``(rank, costs, seconds, launch
+    counts, whether gloo gathered a CUDA tensor, error)``."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = parallel.distributed_initialize(
+            device=device, backend="gloo",
+            init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=world)
+        mesh = parallel.make_mesh(device=device)
+        probe = [torch.empty(1, device=device) for _ in range(world)]
+        dist.all_gather(probe, torch.full((1,), float(rank), device=device))
+        gathered = [float(p) for p in probe] == [float(r)
+                                                 for r in range(world)]
+        prob, *args = bench_inputs(device, B, u_warm)
+        cost_fn = parallel.make_sharded_theta_cost_fn(prob, SHARDED_CONFIG,
+                                                      mesh)
+        args = (*args, KL_BOUND)
+        cost_fn(*args)   # warm-up
+        costs, secs, launched = counted(lambda: cost_fn(*args))
+        dist.destroy_process_group()
+        results.put((rank, costs.cpu().numpy(), secs, launched, gathered,
+                     None))
+    except BaseException:
+        results.put((rank, None, None, None, None, traceback.format_exc()))
+
+
+def gather_results(results, procs, timeout_s: float) -> list:
+    """One result ``(..., error)`` from each process in ``procs``, or the
+    results so far once one reports an error; fails when a process has
+    died without reporting, or after ``timeout_s``."""
+    got, deadline = [], time.monotonic() + timeout_s
+    while len(got) < len(procs):
+        try:
+            got.append(results.get(timeout=1.0))
+        except queue.Empty:
+            exits = [p.exitcode for p in procs]
+            assert any(p.exitcode is None for p in procs), (
+                f"ranks exited with codes {exits} without reporting")
+            assert time.monotonic() < deadline, (
+                f"a rank gave no result in {timeout_s} s")
+            continue
+        if got[-1][-1] is not None:
+            break
+    return got
+
+
+def sharded_ranks(device, name_power, u_warm):
+    """Phase 8d, second part: SHARDED_RANKS spawned processes on one card
+    in a gloo group (NCCL refuses two ranks on one GPU), the sharded
+    θ-bank at B_MAIN from the warm start ``u_warm`` against the unsharded
+    bank in this process, bit for bit; returns the ranks' summed launch
+    counts."""
+    prob, x_mpc, u_warm, thetas = bench_inputs(device, B_MAIN, u_warm)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(
+        r, SHARDED_RANKS, port, str(device), B_MAIN,
+        u_warm.cpu().numpy(), results)) for r in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = gather_results(results, procs, RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    wall = time.perf_counter() - t0
+    errors = [f"rank {r}:\n{err}" for r, *_, err in got if err]
+    assert not errors, "\n".join(errors)
+    ref = ratilqr.make_cost_fn(prob, SHARDED_CONFIG)(x_mpc, u_warm, thetas,
+                                                     KL_BOUND).cpu()
+    launched = {}
+    for rank, costs, secs, counts, gathered, _ in sorted(got,
+                                                         key=lambda g: g[0]):
+        assert torch.equal(torch.from_numpy(costs), ref), (
+            f"rank {rank}: the sharded θ-bank differs from the unsharded")
+        for kernel, n in counts.items():
+            launched[kernel] = launched.get(kernel, 0) + n
+        print(f"sharded θ-bank (gloo, rank {rank} of {SHARDED_RANKS} on "
+              f"{device}) B={B_MAIN}: equal bit for bit to the unsharded "
+              f"bank; {secs * 1e3:.1f} ms (host clock; {name_power}); "
+              f"gloo all_gather of {device.type} tensors: {gathered}; "
+              f"launches {counts}",
+              flush=True)
+    expect_path("sharded θ-bank on 2 ranks", launched, ("step", "candidate"))
+    print(f"{SHARDED_RANKS} gloo ranks on one card: {wall:.1f} s from "
+          "spawn to the last result", flush=True)
+    return {f"sharded_theta_bank_{SHARDED_RANKS}_ranks": launched}
+
+
+def parallel_dp(device, name_power):
+    """Phase 8d, third part: the parallel-in-time Riccati DP against kernel
+    A's sequential pass on the same unicycle approximation, PDP_LANES
+    lanes, θ = linspace(0, PDP_THETA_MAX), each horizon of PDP_HORIZONS:
+    float64 parity (rtol 1e-8, failures equal), both times in float64 and
+    float32, and each float32 pass's error against the float64 sequential
+    pass on the same (cast) approximation."""
+    f64 = torch.float64
+    dp_args = dict(mu=0.0, delta=2.0, mu_min=1e-6, delta_0=2.0)
+    for horizon in PDP_HORIZONS:
+        g = torch.Generator().manual_seed(horizon)
+        x0s = (0.1 * torch.randn((PDP_LANES, 3), generator=g,
+                                 dtype=f64)).to(device)
+        u = (0.1 * torch.randn((PDP_LANES, horizon, 2), generator=g,
+                               dtype=f64)).to(device)
+        prob = unicycle(N=horizon, dtype=f64, device=device,
+                        analytic_jacobians=True)
+        ap = approximate_model(prob, u, *rollout_open_loop_with_jac(
+            prob, x0s, u))
+        theta = torch.linspace(0.0, PDP_THETA_MAX, PDP_LANES, dtype=f64,
+                               device=device)
+        seq = dp_optimize(ap, theta=theta, **dp_args)
+        par = dp_optimize_parallel(ap, theta=theta, **dp_args)
+        ok = ~seq[-1]
+        assert torch.equal(seq[-1], par[-1]), "failed lanes differ"
+        assert bool(ok[0]), "the θ = 0 lane must be feasible"
+        for name, a, b in (("s", par[0].s, seq[0].s), ("S", par[0].S,
+                                                         seq[0].S),
+                           ("L", par[1], seq[1])):
+            torch.testing.assert_close(a[ok], b[ok], rtol=1e-8, atol=1e-10,
+                                       msg=lambda m: f"T={horizon} {name}: "
+                                       + m)
+        times, errs = {}, {}
+        for dtype in (f64, torch.float32):
+            a = Approximation(*(t.to(dtype) for t in ap))
+            th = theta.to(dtype)
+            for name, fn in (("kernel A", dp_optimize),
+                             ("parallel", dp_optimize_parallel)):
+                times[name, dtype] = kernel_check.time_ms(
+                    lambda: fn(a, theta=th, **dp_args))
+                if dtype == torch.float32:
+                    out = fn(a, theta=th, **dp_args)
+                    both = ok & ~out[-1]
+                    errs[name] = (float(((out[0].s[both].double()
+                                          - seq[0].s[both]).abs()
+                                         / seq[0].s[both].abs()).max()),
+                                  int((out[-1] != seq[-1]).sum()))
+        print(f"parallel DP unicycle T={horizon} B={PDP_LANES}, θ in [0, "
+              f"{PDP_THETA_MAX}]: {int(ok.sum())} feasible lanes; float64 "
+              f"equal to kernel A's sequential pass (rtol 1e-8); times "
+              + ", ".join(f"{name} {str(dt)[6:]} {ms:.3f} ms"
+                          for (name, dt), ms in times.items())
+              + " (median of 5, CUDA events, μ-restart loop included); "
+              "float32 max relative value error against float64 "
+              "sequential: " + ", ".join(
+                  f"{name} {e:.3e} ({flips} lanes' failure flag differs)"
+                  for name, (e, flips) in errs.items())
+              + f" ({name_power})", flush=True)
+
+
+def sharded_phase(device, name_power):
+    """Phase 8d: the distributed layer and the parallel-in-time DP;
+    returns the launch counts of the sharded paths."""
+    counts, u_warm = sharded_one_rank(device, name_power)
+    counts.update(sharded_ranks(device, name_power, u_warm))
+    parallel_dp(device, name_power)
+    return counts
+
+
 def timings(device, name_power):
     """Phase 9: returns {(model, B): {kernel: record}} with each kernel's
     wrapper, launch-alone and plain times and its bound."""
@@ -1405,7 +1716,8 @@ def timings(device, name_power):
             print(f"time {kernel} {model} T={horizon} B={B} f32: wrapper "
                   f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, plain "
                   f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
-                  f"the plain version of 3, CUDA events; {name_power})",
+                  f"the plain version one run, after a warm-up each, CUDA "
+                  f"events; {name_power})",
                   flush=True)
     for B in NM_WIDTHS:   # RAT iLQR++'s one-lane and depth-3 banks
         times = kernel_check.kernel_timings("unicycle", NM_T, B, f32, device)
@@ -1418,7 +1730,8 @@ def timings(device, name_power):
                   f"widths): wrapper {ms:.4f} ms, launch alone "
                   f"{launch_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{bound:.5f} ms ({by}) (median of 5, the plain version "
-                  f"of 3, CUDA events; {name_power})", flush=True)
+                  f"one run, after a warm-up each, CUDA events; "
+                  f"{name_power})", flush=True)
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -1531,6 +1844,7 @@ def main() -> int:
         phase("PETS", pets_phase, device, name_power)
         fleet_counts = phase("MPC fleets", fleets_phase, device, name_power,
                              cpu["fleets"])
+        sharded_counts = phase("sharded", sharded_phase, device, name_power)
         times = phase("timings", timings, device, name_power)
         print(f"CPU halves, in {CPU_WORKERS} worker processes: " + ", ".join(
             f"{name} {job.result()[1]:.1f} s (done "
@@ -1544,7 +1858,7 @@ def main() -> int:
     print(json.dumps(kernel_record(
         err32, quad_counts, cart_counts,
         {"unicycle_bank": bank_counts, "rat_ilqr": rat_counts, **nm_counts,
-         **fleet_counts,
+         **fleet_counts, **sharded_counts,
          **{f"{LINEAR}_{k}": c for k, c in linear_counts.items()}}, times)),
         flush=True)
     print(name_power, flush=True)

@@ -629,8 +629,10 @@ def kernel_timings(model: str, T: int, B: int, dtype, device,
     """``{kernel: (wrapper ms, launch ms, plain ms)}`` on ``model`` at
     (T, B), by CUDA events: the wrapper with its layout copies and the
     launch alone on inputs already in the kernel's layout, median of 5,
-    and the plain version, median of 3 (None where it runs out of device
-    memory).  Kernel A is timed as the slim optimizing pass."""
+    and the plain version, one run (None where it runs out of device
+    memory), each after a warm-up run.  The plain version is host-bound
+    and varies ±2x between runs, so more runs would buy no precision.
+    Kernel A is timed as the slim optimizing pass."""
     out = {}
     cases = timing_cases(model, T, B, dtype, device)
     for kernel in kernels:
@@ -640,7 +642,7 @@ def kernel_timings(model: str, T: int, B: int, dtype, device,
         del args
         wrapper_ms = time_ms(wrapper)
         try:
-            plain_ms = time_ms(plain, reps=3)
+            plain_ms = time_ms(plain, reps=1)
         except torch.cuda.OutOfMemoryError:
             plain_ms = None
         out[kernel] = (wrapper_ms, launch_ms, plain_ms)
