@@ -11,7 +11,10 @@ Phases (each prints a line and raises on failure):
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
      and stack frame, and kernels A's, B's, C's and D's one-solve-per-team
-     kernels (the quadrotor) with their shared memory a block; then builds
+     kernels (the quadrotor) with their shared memory a block, and kernel
+     C's few-lane kernel at n <= 4 (each model and K, f32 and f64) with the
+     lanes a solve and shared memory its launch takes at the widths of the
+     paths below; then builds
      kernel A at (6, 3) and kernel D at n=6,
      shapes outside the shipped library, float32 and float64, and prints
      each unit's build time and ptxas report;
@@ -23,8 +26,11 @@ Phases (each prints a line and raises on failure):
      (``kernel_check.H_FAIL``), kernel A's slim optimizing pass and
      kernel D (a shared and a per-lane noise model) on the quadrotor at
      B=262,144 in float32, kernels A and C on the unicycle T=30 at the
-     fleets' widths (B=256 and 640), the θ = 1e6 lanes latching m_fail and
-     the h_fail fixtures' lanes h_fail;
+     fleets' widths (B=256 and 640), kernel C on the unicycle, LQR and the
+     cartpole at the first width whose launch takes 1 lane a solve (read
+     from the launch's own query; the widths above take 4),
+     the θ = 1e6 lanes latching m_fail and the h_fail fixtures' lanes
+     h_fail;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -72,7 +78,7 @@ Phases (each prints a line and raises on failure):
      on the card and on the CPU with the same control draws (μ, Σ within
      1e-12);
   8c. MPC fleets (``mpc_episode``, seeds as bank lanes; the unicycle at
-     T=30, f32, kernels A + C): the iLEQG fleet of 256 seeds x 15 steps
+     T=30, f32, kernels A + C): the iLEQG fleet of 256 seeds x 3 steps
      timed (median of 3) with its host syncs, launches and (over its
      first step) idle share, a host-loop comparator, and seeds 0-3 against
      one-seed episodes under the f32 rule; the RAT iLQR fleet of 64 seeds
@@ -83,7 +89,7 @@ Phases (each prints a line and raises on failure):
   8d. sharded: the distributed layer (``ratilqr_tpu_torch.parallel``) on
      an NCCL group of one rank in this process — the θ-bank of the bench
      configuration at B=262,144, PETS at pets_16k through both elite
-     paths, the iLEQG fleet of 256 seeds x 3 steps — and the θ-bank at
+     paths, the iLEQG fleet of 256 seeds x 2 steps — and the θ-bank at
      B=16,384 on two spawned gloo ranks sharing the card, each equal bit
      for bit to its unsharded run; then the parallel-in-time Riccati DP
      against kernel A on the unicycle (B=16, T=1,000 and 4,000): float64
@@ -91,7 +97,8 @@ Phases (each prints a line and raises on failure):
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144; T=30 at
      RAT iLQR++'s widths B=1 and 942), the quadrotor (B=16,384 and
-     262,144) and the cartpole (B=16,384); warm solves/s.
+     262,144) and the cartpole (B=16,384); kernel C's launch alone at the
+     fleets' widths (the unicycle T=30, B=256 and 640); warm solves/s.
 The CPU halves of the card-vs-CPU checks (phases 5, 6, 6b, 7b, 8 and 8c)
 depend on nothing the card computes: they run from the start in
 ``CPU_WORKERS`` spawned worker processes while the card works, and the
@@ -127,7 +134,8 @@ from ratilqr_tpu_torch import (CrossEntropyConfig, ILEQGBankServer,
 from ratilqr_tpu_torch import parallel
 from ratilqr_tpu_torch.models import (cartpole, gmm_integrator, quadrotor,
                                       unicycle)
-from ratilqr_tpu_torch.ops import _build, riccati_cuda, tile_model
+from ratilqr_tpu_torch.ops import (_build, candidate_cuda, riccati_cuda,
+                                   tile_model)
 from ratilqr_tpu_torch.ops.approx import Approximation, approximate_model
 from ratilqr_tpu_torch.ops.riccati import dp_optimize
 from ratilqr_tpu_torch.ops.riccati_parallel import dp_optimize_parallel
@@ -198,7 +206,7 @@ FLEET_T = 30
 FLEET_CONFIG = ILEQGConfig(iter_max=30, eps_history_cap=0,
                            fused_candidate_eval=True)
 FLEET_KERNELS = ("riccati", "candidate")
-FLEET_SEEDS, FLEET_STEPS = 256, 15       # iLEQG at θ = 0
+FLEET_SEEDS, FLEET_STEPS = 256, 3        # iLEQG at θ = 0
 FLEET_PROFILED = 1       # steps of the profiled run (idle share)
 FLEET_CHECKED = (4, 2)   # seeds 0-3 against one-seed episodes, 2 steps
 RAT_FLEET_CONFIG = CrossEntropyConfig(num_samples=10, iter_max=5,
@@ -219,7 +227,7 @@ SERVE_BANK = 2_048
 # θ-bank on an NCCL group of one rank, and at B_MAIN on two gloo ranks
 # sharing the card; the parallel-in-time Riccati DP against kernel A.
 SHARDED_CONFIG = CrossEntropyConfig(ileqg=BENCH_CONFIG)
-SHARDED_FLEET_STEPS = 3
+SHARDED_FLEET_STEPS = 2
 SHARDED_RANKS = 2
 RANK_TIMEOUT_S = 300
 PDP_LANES = 16
@@ -249,9 +257,18 @@ DESIGNS = {   # how each kernel spreads a bank over the card
              "solve per thread at n <= 4, the unicycle, LQR and the "
              "cartpole"),
     "candidate": ("one solve per team of 16 lanes (two a warp, 8 a block, "
-                  "working set in shared memory) at n=12, the quadrotor; one "
-                  "solve per thread at n <= 4, the unicycle, LQR and the "
-                  "cartpole"),
+                  "working set in shared memory) at n=12, the quadrotor; at "
+                  "n <= 4 (the unicycle, LQR and the cartpole) one solve per "
+                  "team of K = 4 or 1 lanes of a warp (K picked from the "
+                  "width and the SM count: 4 while that keeps the bank "
+                  "within 512 threads an SM), every lane rolling out, "
+                  "calling the model and folding in registers, the lanes "
+                  "splitting M's solves and the DP's products by shuffles; "
+                  "128 threads a block (64 at K = 1); at K = 4 the fold of "
+                  "step t - 1 computed during the DP step of step t, and "
+                  "each step's streamed inputs and noise model staged in a "
+                  "ring of three shared buffers by cp.async; K = 1 (wide "
+                  "banks) unstaged, one step at a time"),
     "riccati_folded": ("one solve per team of 16 lanes (two a warp, 8 a "
                        "block, working set in shared memory, the next step's "
                        "streamed blocks double-buffered by cp.async) at "
@@ -344,11 +361,12 @@ def build():
                   *smem[True])
               + ", ".join(f"{'shared' if w else 'per-lane'} W {v[0]} B"
                           for w, v in smem.items()), flush=True)
-    for label, kernel in (("B", "step"), ("C", "candidate")):
+    for label, kernel, args in (("B", "step", ()),
+                                ("C", "candidate", (B_MAIN,))):
         for dtype, name in ((torch.float32, "float"),
                             (torch.float64, "double")):
             nbytes, teams, lanes = _build.block_shared_memory(
-                kernel, tile_model.QUADROTOR, dtype)
+                kernel, tile_model.QUADROTOR, dtype, *args)
             entry = f"{kernel}_team_kernel"
             for fn, regs, stores, loads, stack in rows:   # demangled or not
                 if f"{entry}<{name}," in fn or f"{entry}I{name[0]}" in fn:
@@ -357,6 +375,7 @@ def build():
                           f"frame, {stores} B spill stores, {nbytes} B "
                           f"dynamic shared memory a block of {teams} teams "
                           f"of {lanes} lanes", flush=True)
+    small_candidate_report(rows)
     units = [(kernel, shape, suffix)
              for kernel, shape in (("riccati", (6, 3)),
                                    ("riccati_folded", (6,)))
@@ -371,6 +390,44 @@ def build():
     for lib in {lib.parent: lib for lib in libs}.values():   # one log each
         for line in _build.report(lib):
             print("  " + line, flush=True)
+
+
+# Kernel C's models at n <= 4 and the horizons phase 3 checks them at.
+SMALL_C_MODELS = {"unicycle": (tile_model.UNICYCLE, FLEET_T),
+                  "lqr": (tile_model.LQR, 7),
+                  "cartpole": (tile_model.CARTPOLE, CART_T)}
+
+
+def one_lane_widths(dtype):
+    """{model: the first width at which kernel C's launch at n <= 4 takes
+    one lane a solve on this card}, from the launch's own query."""
+    return {model: candidate_cuda.first_widths(model_id, dtype)[1]
+            for model, (model_id, _) in SMALL_C_MODELS.items()}
+
+
+def small_candidate_report(rows):
+    """Phase 2: kernel C's few-lane kernel (n <= 4): each instantiation's
+    ptxas report, and the lanes a solve, solves a block and shared memory
+    its launch takes at the widths of this script."""
+    for fn, regs, stores, loads, stack in rows:
+        if "candidate_kernel" in fn:
+            print(f"kernel C, few lanes a solve (n <= 4) "
+                  f"{_build.short_name(fn)}: {regs} registers, {stack} B "
+                  f"stack frame, {stores} B spill stores, {loads} B spill "
+                  "loads", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        for model, (model_id, _) in SMALL_C_MODELS.items():
+            shapes = []
+            for B in sorted({1, 5, 942, *FLEET_WIDTHS, 4_099, B_MAIN,
+                             *candidate_cuda.first_widths(
+                                 model_id, dtype).values(), B_WIDE}):
+                nbytes, solves, lanes = candidate_cuda.block_shared_memory(
+                    model_id, dtype, B)
+                shapes.append(f"B={B}: K={lanes}, {solves} solves, "
+                              f"{nbytes} B")
+            print(f"kernel C, few lanes a solve ({model}, {dtype}), launch "
+                  "by width (lanes a solve, solves a block, shared memory "
+                  "a block): " + "; ".join(shapes), flush=True)
 
 
 def check_kernels(device):
@@ -409,6 +466,13 @@ def check_kernels(device):
             keep("candidate", kernel_check.check_candidate(
                 "unicycle", FLEET_T, B, dtype, device))
             kernel_check.clear_caches()
+        # Kernel C at n <= 4 takes 4 lanes a solve at every width above;
+        # these are the first at which its launch takes 1.
+        one_lane = one_lane_widths(dtype)
+        for model, (model_id, horizon) in SMALL_C_MODELS.items():
+            keep("candidate", kernel_check.check_candidate(
+                model, horizon, one_lane[model], dtype, device))
+        torch.cuda.empty_cache()
         f32 = dtype == torch.float32
         if f32:
             keep("riccati", kernel_check.check_riccati_wide(
@@ -424,7 +488,9 @@ def check_kernels(device):
               f"{LINEAR} T={LINEAR_T} (A, D) and the h_fail fixture (A, B), "
               f"B=1, B=5 and B=4099; the unicycle T={FLEET_T} at the "
               f"fleets' widths B={FLEET_WIDTHS[0]} and B={FLEET_WIDTHS[1]} "
-              f"(A, C)"
+              f"(A, C); C on the unicycle, LQR and the cartpole at "
+              f"B={', '.join(map(str, one_lane.values()))} (the first "
+              f"widths taking 1 lane a solve)"
               + (f", A's slim optimizing pass and D (shared and per-lane W)"
                  f" on the quadrotor at B={B_WIDE}" if f32 else "") + ", "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
@@ -1732,6 +1798,21 @@ def timings(device, name_power):
                   f"{bound:.5f} ms ({by}) (median of 5, the plain version "
                   f"one run, after a warm-up each, CUDA events; "
                   f"{name_power})", flush=True)
+    for B in FLEET_WIDTHS:   # the fleets' banks: kernel C alone, no plain
+        _, layout, launch, _ = kernel_check.timing_cases(
+            "unicycle", FLEET_T, B, f32, device)["candidate"]()
+        args = layout()
+        launch_ms = kernel_check.time_ms(lambda: launch(args))
+        bound, by = kernel_check.bound_ms("candidate", 3, 2, FLEET_T, B, f32)
+        lanes = candidate_cuda.block_shared_memory(tile_model.UNICYCLE, f32,
+                                                   B)[2]
+        result[("unicycle_fleet", B)] = {"candidate": dict(
+            launch_ms=launch_ms, bound_ms=bound, bound_by=by, lanes=lanes)}
+        print(f"time candidate unicycle T={FLEET_T} B={B} f32 (the fleets' "
+              f"widths, {lanes} lanes a solve): launch alone "
+              f"{launch_ms:.4f} ms, bound {bound:.5f} ms ({by}) (median of "
+              f"5, after a warm-up, CUDA events; {name_power})", flush=True)
+        del args
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -1753,8 +1834,9 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     """The JSON kernel record: the quadrotor path (T=50, B=16,384, f32) at
     the top level, the cartpole path (T=50, B=16,384, f32) under
     ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``,
-    the quadrotor at B=262,144 under ``"quadrotor_wide"`` and the unicycle
-    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"``."""
+    the quadrotor at B=262,144 under ``"quadrotor_wide"``, the unicycle
+    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"`` and (kernel C,
+    launch alone) at the fleets' widths under ``"unicycle_fleet"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():
         quad = times[("quadrotor", B_MAIN)][name]
@@ -1788,7 +1870,11 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
                 f"B={B}": {**times[("unicycle_nm", B)][name],
                            "library_ms": None,
                            "at": f"unicycle n=3 m=2 T={NM_T} B={B} f32"}
-                for B in NM_WIDTHS}})
+                for B in NM_WIDTHS},
+            **({"unicycle_fleet": {
+                f"B={B}": {**times[("unicycle_fleet", B)][name],
+                           "at": f"unicycle n=3 m=2 T={FLEET_T} B={B} f32"}
+                for B in FLEET_WIDTHS}} if name == "candidate" else {})})
     return {"kernels": rows}
 
 

@@ -11,14 +11,47 @@
 //
 // Two designs, one per size of model (launch() picks by Model::N):
 //
-// One solve per thread (n ≤ kUnrollMax: the unicycle, LQR, the cartpole;
-// candidate_kernel).  The forward phase rolls the policy
-// u = l_cand + L(x − x̄) out in registers and stores the (T+1)·n states in
-// a scratch buffer the wrapper allocates (lane-minor, (T+1, n, B)); the
-// backward phase re-reads x_t, x̄_t, l_t and L_t, recomputes u, the model
-// blocks and the fold
+// One solve per team of K lanes of a warp (n ≤ kUnrollMax: the unicycle,
+// LQR, the cartpole; candidate_kernel, on small_team.cuh), K = 4 or 1.
+// The forward phase rolls the policy u = l_cand + L(x − x̄) out in
+// registers and stores the (T+1)·n states in a scratch buffer the wrapper
+// allocates (lane-minor, (T+1, n, B)); the backward phase re-reads x_t,
+// x̄_t, l_t and L_t, recomputes u, the model blocks and the fold
 //   q̄_vec = q_vec + Lᵀr,  Q̄ = sym(Q + LᵀP + PᵀL + LᵀRL + μLᵀL),  Ā = A + BL
-// and runs folded_step (dp_step.cuh).  Only value and m_fail are written.
+// and runs rq::small::folded_step, in dp_step.cuh:folded_step's order.
+// Every lane of a team rolls out, calls the device model and folds (that
+// saves broadcasting ~40 words a step); lane r takes the solves with M's
+// factor for columns r, r + K, ... of M⁻¹[S | s⃗] and the rows r, r + K, ...
+// of DS, AᵀDS and AᵀDS·A, which go round by __shfl_sync(width = K).  Only
+// value and m_fail are written, by lane 0.  A block is 128 threads where
+// K > 1 and 64 at K = 1, one solve per K of them, on consecutive lanes b.
+//
+// The launch picks K from B and the card's SM count (small_lanes): 4
+// while that keeps the bank within kSmallFill = 512 threads an SM, so up
+// to B = 16,896 on an H100's 132 SMs, 1 above (at ~1,000 threads an SM
+// the lanes' replicated model, fold and factor cost more issue slots than
+// the extra warps save; K = 2 between the two tied K = 1 when measured,
+// team_sweep.py candidate, so the launch does not take it).  One lane
+// a solve everywhere (the former design) left one warp a scheduler at
+// B = 16,384 and most SMs empty at the widths of RAT iLQR++ and the
+// fleets (1 to 942 lanes), each thread paying its step's dependent chain
+// of loads, divisions, square roots and logs in turn.
+// Where K > 1 two more things shorten that chain:
+//   - the backward phase computes the fold of step t − 1, which does not
+//     depend on the carry, in the same iteration as the DP step of step
+//     t, so its loads and model calls fill the DP's dependent chain;
+//   - each step the block stages x̄, l, L (backward also x and W_t, W⁻¹_t,
+//     logdet W_t, once a block) of a later step by cp.async into a ring of
+//     three shared buffers, entry-major as in device memory, behind the
+//     one block barrier of the step.
+// At K = 1 the bank fills the card with warps that hide the loads and the
+// chain, and the registers both cost would lower occupancy (measured:
+// team_sweep.py candidate), so K = 1 reads its steps where it uses them,
+// one step at a time.  Shared memory a block (three steps) at K = 4, f32:
+// unicycle 5,604 B, cartpole 5,388 B, LQR 3,948 B; twice that in f64; none
+// at K = 1.  A team past
+// the end of the bank reads lane B − 1, keeps every barrier and shuffle
+// and stores nothing.
 //
 // One solve per team (n > kUnrollMax: the quadrotor; candidate_team_kernel).
 // Same phases and arithmetic, spread over a team of 16 lanes (two teams a
@@ -44,17 +77,18 @@
 // past the end of the bank reads lane B − 1, keeps every barrier and
 // stores nothing.
 //
-// Bound on the H100: per step and lane the two phases read x̄ (n), l (m)
-// and L (m·n) twice, write x (n) once and read it back: 2·11 + 6 = 28 words
-// for the unicycle (112 bytes) against ~730 scalar operations for the
-// fold and the folded DP plus the rollout and model twice.  At
-// B = 262,144 and T = 100 that is ~2.9 GB (0.9 ms at 3.35 TB/s) against
-// ~2e10 operations (~0.6 ms at 33.5e12 FP32 instructions/s before
-// divisions, sqrt and sin/cos expand): bound by device memory in this
-// simple form.  The TPU's stored variant kept the folded stack in VMEM;
-// here a register-resident stack is impossible (22 words × T per lane)
-// and a stored stack in device memory would move more bytes than it
-// saves, so the recompute design is the one kernel.
+// Bound on the H100: the function reads x̄, l and L once (the wrapper's
+// bound, kernel_check.kernel_work: 0.346 ms for the unicycle at T = 100,
+// B = 262,144 in f32).  The recompute design reads x̄ (n), l (m) and L
+// (m·n) twice and writes and re-reads x (n): 2·11 + 6 = 28 words a lane and
+// step for the unicycle (112 bytes), ~2.94 GB at T = 100 and B = 262,144,
+// a traffic floor of ~0.88 ms at 3.35 TB/s, against ~2e10 operations
+// (~0.6 ms at 33.5e12 FP32 instructions/s before divisions, sqrt and
+// sin/cos expand).  The TPU's stored variant kept the folded stack in
+// VMEM; here a register-resident stack is impossible (22 words × T per
+// lane) and neither a stored stack in device memory nor one in shared
+// memory (22·T words a solve) pays, so the recompute design is the one
+// kernel and x goes through the lane-minor scratch.
 //
 // At n=12, m=4 (the quadrotor; the TPU ran its recompute variant there,
 // candidate_pallas.py:440-456) a step needs x̄, l and L, 64 words per
@@ -70,9 +104,10 @@
 // B = 16,384 and T = 50, 0.030 GB (0.009 ms) against 7.8e8 operations
 // (0.012 ms), bound by the FP32 rate.
 #include <cstdint>
+#include <type_traits>
 
-#include "dp_step.cuh"
 #include "dtype.cuh"
+#include "small_team.cuh"
 #include "team_mat.cuh"
 #include "team_stage.cuh"
 #include "tile_model.cuh"
@@ -90,30 +125,91 @@ struct CandidateArgs {
   bool* m_fail;
 };
 
-template <typename T, int N, int M>
-__device__ __forceinline__ void policy(const T* xr, const T* lc, const T* Lg, int t, int64_t B,
-                                       int b, const T (&x)[N], T (&u)[M], T (&L)[M][N]) {
-  T dx[N];
-#pragma unroll (rq::Unroll<N>::value)
-  for (int i = 0; i < N; ++i) dx[i] = x[i] - xr[(t * N + i) * B + b];
-#pragma unroll (rq::Unroll<M>::value)
-  for (int i = 0; i < M; ++i) {
-#pragma unroll (rq::Unroll<N>::value)
-    for (int j = 0; j < N; ++j) L[i][j] = Lg[((int64_t(t) * M + i) * N + j) * B + b];
-    T acc = L[i][0] * dx[0];
-#pragma unroll (rq::Unroll<N>::value)
-    for (int j = 1; j < N; ++j) acc = acc + L[i][j] * dx[j];
-    u[i] = lc[(t * M + i) * B + b] + acc;
-  }
+// ---- One solve per team of K lanes (N ≤ rq::kUnrollMax) ----
+
+// Threads a block of candidate_kernel where K > 1 and at K = 1; whether
+// a team of K > 1 lanes stages its streamed steps in shared memory by
+// cp.async (1) or reads them from device memory where it uses them (0;
+// K = 1 always does); its lanes a solve (0: the launch picks K from B and
+// the SM count); and the threads an SM that pick fills up to.
+// -DRQ_SMALL_THREADS/-DRQ_WIDE_THREADS/-DRQ_SMALL_STAGE/-DRQ_SMALL_LANES
+// build the variants python -m ratilqr_tpu_torch.team_sweep times.
+#ifndef RQ_SMALL_THREADS
+#define RQ_SMALL_THREADS 128
+#endif
+#ifndef RQ_WIDE_THREADS
+#define RQ_WIDE_THREADS 64
+#endif
+#ifndef RQ_SMALL_STAGE
+#define RQ_SMALL_STAGE 1
+#endif
+#ifndef RQ_SMALL_LANES
+#define RQ_SMALL_LANES 0
+#endif
+constexpr int kSmallFill = 512;
+
+__host__ __device__ constexpr int small_threads(int K) {
+  return K > 1 ? RQ_SMALL_THREADS : RQ_WIDE_THREADS;
 }
 
-template <typename T, template <typename> class Model>
-__global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
+// Whether a team of K lanes computes the fold of step t − 1 during the
+// DP step of step t, and whether it also stages its steps.  Both pay where
+// the bank is narrow (K > 1: few warps, each step's dependent chain is the
+// time); at K = 1 the bank fills the card with warps that hide the loads
+// and chain, and the extra registers of either would cost occupancy.
+__host__ __device__ constexpr bool small_ahead(int K) { return K > 1; }
+__host__ __device__ constexpr bool small_staged(int K) {
+  return RQ_SMALL_STAGE == 1 && small_ahead(K);
+}
+static_assert(RQ_SMALL_STAGE == 0 || RQ_SMALL_STAGE == 1, "staging is off or on");
+static_assert(RQ_SMALL_LANES == 0 || RQ_SMALL_LANES == 1 || RQ_SMALL_LANES == 4,
+              "a solve takes 1 or 4 lanes");
+
+// One step's streamed inputs for a block's S solves, entry-major as in
+// device memory: x̄_t, l_t, L_t, x_t, and W_t, W⁻¹_t, logdet W_t once.
+template <typename T, int N, int M, int S>
+struct SmallStep {
+  T xr[N][S], l[M][S], L[M * N][S], x[N][S];
+  T W[N][N], Wi[N][N], ldW;
+};
+
+// Staged steps: step t in buffer t % kSmallBuffers.  The fold of step
+// t − 1 is computed during the DP step of step t, which still reads W_t,
+// while the copies of step t − 2 land.
+constexpr int kSmallBuffers = 3;
+
+// One step's closed-loop fold: q, q̄⃗ = q⃗ + Lᵀr, Q̄ = sym(Q + LᵀP + PᵀL +
+// LᵀRL + μLᵀL) and Ā = A + BL.
+template <typename T, int N>
+struct Fold {
+  T q, qv[N], Q[N][N], A[N][N];
+};
+
+// The same trial as the team kernel below, one solve per team of K lanes
+// of a warp (K = 1: one per thread), on rq::small::folded_step.  Every
+// lane rolls the policy out, calls the device model and folds in
+// registers; the lanes split the solves and products of the DP step.
+// Ahead (small_ahead), the backward phase is software-pipelined: the fold
+// of step t − 1, which does not depend on the carry, is computed in the
+// same iteration as the DP step of step t, so its loads and model calls
+// fill the DP's dependent chain.  Staged (small_staged, only where ahead),
+// each step starts with the block's one barrier, after which the block
+// issues the cp.async copies of a later step; every team, live or not,
+// keeps every barrier and shuffle.
+template <typename T, template <typename> class Model, int K>
+__global__ void __launch_bounds__(small_threads(K)) candidate_kernel(const CandidateArgs a) {
   using Mod = Model<T>;
-  constexpr int N = Mod::N, M = Mod::M;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int64_t B = a.B;
+  constexpr int Threads = small_threads(K);
+  constexpr int N = Mod::N, M = Mod::M, Solves = Threads / K;
+  constexpr int Rows = rq::small::kSlots<N, K>;
+  constexpr bool Staged = small_staged(K), Ahead = small_ahead(K);
+  using Step = SmallStep<T, N, M, Solves>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Step* st = reinterpret_cast<Step*>(smem_raw);   // kSmallBuffers steps when staged
+  const int lane = threadIdx.x % K, k = threadIdx.x / K;
+  const int b0 = blockIdx.x * Solves;
+  const bool live = b0 + k < a.B;   // a team past the bank stores nothing
+  const int64_t B = a.B, b = live ? b0 + k : a.B - 1;
   const Mod model(a.p);
   const T* xr = static_cast<const T*>(a.x_ref);
   const T* lc = static_cast<const T*>(a.l_cand);
@@ -122,23 +218,71 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
   const T* Wis = static_cast<const T*>(a.W_inv);
   const T* ldWs = static_cast<const T*>(a.logdet_W);
   T* xs = static_cast<T*>(a.x_scratch);
+  const auto buf = [&](int t) -> Step& { return st[t % kSmallBuffers]; };
+
+  // Step t's x̄_t, l_t, L_t (and backward x_t and the noise model) into
+  // its buffer by cp.async, as one batch.
+  const auto fetch = [&](int t, bool backward) {
+    Step& d = buf(t);
+    rq::team::stage_lanes<N, Solves, Threads, true>(d.xr, xr, t, B, b0);
+    rq::team::stage_lanes<M, Solves, Threads, true>(d.l, lc, t, B, b0);
+    rq::team::stage_lanes<M * N, Solves, Threads, true>(d.L, Lg, t, B, b0);
+    if (backward) {
+      rq::team::stage_lanes<N, Solves, Threads, true>(d.x, xs, t, B, b0);
+      rq::team::stage_noise<N, true>(d.W, d.Wi, d.ldW, Ws, Wis, ldWs, t);
+    }
+    __pipeline_commit();
+  };
+  // Staged: the batch in flight has landed, and every thread is past the
+  // previous step, so the batch of step `next` may go into its buffer.
+  const auto next_step = [&](int next, bool backward) {
+    if constexpr (Staged) {
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      if (next >= 0 && next < a.T) fetch(next, backward);
+    }
+  };
+  // u = l_t + L_t (x − x̄_t), from step t's buffer (staged) or device memory.
+  const auto policy = [&](int t, const T (&x)[N], T (&u)[M], T (&L)[M][N]) {
+    const Step& d = buf(t);
+    T dx[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      dx[i] = x[i] - (Staged ? d.xr[i][k] : xr[(int64_t(t) * N + i) * B + b]);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int c = 0; c < N; ++c)
+        L[i][c] = Staged ? d.L[i * N + c][k] : Lg[((int64_t(t) * M + i) * N + c) * B + b];
+      T acc = L[i][0] * dx[0];
+#pragma unroll
+      for (int c = 1; c < N; ++c) acc = acc + L[i][c] * dx[c];
+      u[i] = (Staged ? d.l[i][k] : lc[(int64_t(t) * M + i) * B + b]) + acc;
+    }
+  };
+  // Lane r stores entries r, r + K, ... of x_t.
+  const auto store_x = [&](int t, const T (&x)[N]) {
+#pragma unroll
+    for (int r = 0; r < Rows; ++r) {
+      const int i = lane + K * r;
+      if (i < N && live) xs[(int64_t(t) * N + i) * B + b] = rq::small::pick<T, N>(x, i);
+    }
+  };
 
   // Forward: closed-loop rollout from x̄_0 (rollout_feedback: x_0 = x̄_0).
-  T x[N], u[M], L[M][N];
-#pragma unroll (rq::Unroll<N>::value)
-  for (int i = 0; i < N; ++i) {
-    x[i] = xr[i * B + b];
-    xs[i * B + b] = x[i];
-  }
+  T x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = xr[i * B + b];
+  store_x(0, x);
+  if (Staged && a.T > 0) fetch(0, false);
   for (int t = 0; t < a.T; ++t) {
-    policy<T, N, M>(xr, lc, Lg, t, B, b, x, u, L);
-    T xn[N];
+    next_step(t + 1, false);
+    T u[M], L[M][N], xn[N];
+    policy(t, x, u, L);
     model.f(x, u, xn);
-#pragma unroll (rq::Unroll<N>::value)
-    for (int i = 0; i < N; ++i) {
-      x[i] = xn[i];
-      xs[((t + 1) * N + i) * B + b] = x[i];
-    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = xn[i];
+    store_x(t + 1, x);
   }
 
   // Backward: fold recomputed per step, folded evaluating DP.
@@ -147,14 +291,16 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
   const T theta = static_cast<const T*>(a.theta)[b];
   const T mu = static_cast<const T*>(a.mu)[b];
   bool m_fail = false;
-  for (int t = a.T - 1; t >= 0; --t) {
-#pragma unroll (rq::Unroll<N>::value)
-    for (int i = 0; i < N; ++i) x[i] = xs[(t * N + i) * B + b];
-    policy<T, N, M>(xr, lc, Lg, t, B, b, x, u, L);
-    T q, qv[N], Q[N][N], r[M], R[M][M], P[M][N], A[N][N], Bm[N][M];
-    model.jac(x, u, A, Bm);
-    model.quad(t, x, u, q, qv, Q, r, R, P);
-
+  // Step t's fold, from its buffer (staged) or device memory.
+  const auto fold = [&](int t, Fold<T, N>& f) {
+    T xt[N], u[M], L[M][N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      xt[i] = Staged ? buf(t).x[i][k] : xs[(int64_t(t) * N + i) * B + b];
+    policy(t, xt, u, L);
+    T r[M], R[M][M], P[M][N], Bm[N][M];
+    model.jac(xt, u, f.A, Bm);
+    model.quad(t, xt, u, f.q, f.qv, f.Q, r, R, P);
     T Ltr[N], LtP[N][N], RL[M][N], LtRL[N][N], LtL[N][N], BL[N][N];
     rq::mtv<T, M, N>(L, r, Ltr);
     rq::mtm<T, M, N, N>(L, P, LtP);
@@ -162,29 +308,59 @@ __global__ void __launch_bounds__(128) candidate_kernel(const CandidateArgs a) {
     rq::mtm<T, M, N, N>(L, RL, LtRL);
     rq::mtm<T, M, N, N>(L, L, LtL);
     rq::mm<T, N, M, N>(Bm, L, BL);
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
     for (int i = 0; i < N; ++i) {
-      qv[i] = qv[i] + Ltr[i];
-#pragma unroll (rq::Unroll<N>::value)
+      f.qv[i] = f.qv[i] + Ltr[i];
+#pragma unroll
       for (int j = 0; j < N; ++j) {
-        Q[i][j] = Q[i][j] + LtP[i][j] + LtP[j][i] + LtRL[i][j] + mu * LtL[i][j];
-        A[i][j] = A[i][j] + BL[i][j];
+        f.Q[i][j] = f.Q[i][j] + LtP[i][j] + LtP[j][i] + LtRL[i][j] + mu * LtL[i][j];
+        f.A[i][j] = f.A[i][j] + BL[i][j];
       }
     }
-    rq::sym_inplace<T, N>(Q);
-
-    T W[N][N], Wi[N][N];
-#pragma unroll (rq::Unroll<N>::value)
-    for (int i = 0; i < N; ++i)
-#pragma unroll (rq::Unroll<N>::value)
-      for (int j = 0; j < N; ++j) {
-        W[i][j] = Ws[(t * N + i) * N + j];
-        Wi[i][j] = Wis[(t * N + i) * N + j];
-      }
-    rq::folded_step<T, N>(q, qv, Q, A, W, Wi, ldWs[t], theta, s, sv, S, m_fail);
+    rq::sym_inplace<T, N>(f.Q);
+  };
+  __syncthreads();   // the team's x stores, and every thread past the forward's buffers
+  Fold<T, N> f;
+  if (Staged && a.T > 0) {
+    fetch(a.T - 1, true);
+    if (a.T > 1) fetch(a.T - 2, true);
   }
-  static_cast<T*>(a.value)[b] = s;
-  a.m_fail[b] = m_fail;
+  if (Ahead && a.T > 0) {
+    if constexpr (Staged) {
+      __pipeline_wait_prior(a.T > 1 ? 1 : 0);
+      __syncthreads();
+    }
+    fold(a.T - 1, f);
+  }
+  for (int t = a.T - 1; t >= 0; --t) {
+    next_step(t - 2, true);   // staged, so ahead
+    Fold<T, N> next;
+    if constexpr (Ahead)
+      fold(t > 0 ? t - 1 : 0, next);   // step 0's twice, so the body has no branch
+    else
+      fold(t, f);
+    if constexpr (Staged) {
+      const Step& d = buf(t);
+      rq::small::folded_step<T, N, K>(lane, f.q, f.qv, f.Q, f.A, d.W, d.Wi, d.ldW, theta, s, sv,
+                                      S, m_fail);
+    } else {
+      T W[N][N], Wi[N][N];
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          W[i][j] = Ws[(t * N + i) * N + j];
+          Wi[i][j] = Wis[(t * N + i) * N + j];
+        }
+      rq::small::folded_step<T, N, K>(lane, f.q, f.qv, f.Q, f.A, W, Wi, ldWs[t], theta, s, sv,
+                                      S, m_fail);
+    }
+    if constexpr (Ahead) f = next;
+  }
+  if (live && lane == 0) {
+    static_cast<T*>(a.value)[b] = s;
+    a.m_fail[b] = m_fail;
+  }
 }
 
 // ---- One solve per team (N > rq::kUnrollMax: the quadrotor) ----
@@ -325,15 +501,68 @@ __global__ void __launch_bounds__(Lanes * K) candidate_team_kernel(const Candida
   }
 }
 
-// Dynamic shared memory of one team-kernel block (0: one solve per thread).
+// Dynamic shared memory of one team-kernel block (the quadrotor).
 template <typename T, template <typename> class Model>
 constexpr int team_smem_bytes() {
   using Mod = Model<T>;
-  return Mod::N > rq::kUnrollMax ? int(sizeof(BlockSmem<T, Mod::N, Mod::M, kTeams>)) : 0;
+  return int(sizeof(BlockSmem<T, Mod::N, Mod::M, kTeams>));
 }
 
-// One solve per thread for the small models, whose working set fits in
-// registers; one solve per team of kTeamLanes lanes above kUnrollMax.
+// Dynamic shared memory of one candidate_kernel block at K lanes a solve:
+// its staged steps (0 unstaged).
+template <typename T, template <typename> class Model, int K>
+constexpr int small_smem_bytes() {
+  using Mod = Model<T>;
+  return small_staged(K)
+             ? int(kSmallBuffers * sizeof(SmallStep<T, Mod::N, Mod::M, small_threads(K) / K>))
+             : 0;
+}
+
+// The card's SM count (1 if the runtime cannot say).
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return sms;
+}
+
+// Lanes a solve at n ≤ kUnrollMax for a bank of B on `sms` SMs: 4 where
+// that keeps the bank within kSmallFill threads an SM, so a narrow bank
+// spreads its solves over more warps, else 1: a wide bank fills the card
+// anyway.
+int small_lanes(int B, int sms) {
+  if (RQ_SMALL_LANES > 0) return RQ_SMALL_LANES;
+  return int64_t(B) * 4 <= int64_t(sms) * kSmallFill ? 4 : 1;
+}
+
+template <typename T, template <typename> class Model, int K>
+int launch_small(const CandidateArgs& a, cudaStream_t stream) {
+  constexpr int bytes = small_smem_bytes<T, Model, K>(), solves = small_threads(K) / K;
+  const auto kernel = candidate_kernel<T, Model, K>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<(a.B + solves - 1) / solves, small_threads(K), bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// f(k) for the K that small_lanes picked: 4 or 1, or the one a variant
+// fixes.
+template <typename F>
+int with_lanes(int K, F f) {
+  if constexpr (RQ_SMALL_LANES > 0) {
+    return f(std::integral_constant<int, RQ_SMALL_LANES>{});
+  } else {
+    if (K == 4) return f(std::integral_constant<int, 4>{});
+    return f(std::integral_constant<int, 1>{});
+  }
+}
+
+// One solve per team of kTeamLanes lanes above kUnrollMax; one per team of
+// small_lanes(B, SMs) lanes at n ≤ kUnrollMax.
 template <typename T, template <typename> class Model>
 int launch(const CandidateArgs& a, cudaStream_t stream) {
   if constexpr (Model<T>::N > rq::kUnrollMax) {
@@ -343,11 +572,30 @@ int launch(const CandidateArgs& a, cudaStream_t stream) {
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     kernel<<<(a.B + kTeams - 1) / kTeams, kTeamLanes * kTeams, bytes, stream>>>(a);
+    return cudaGetLastError();
   } else {
-    const int threads = 128;
-    candidate_kernel<T, Model><<<(a.B + threads - 1) / threads, threads, 0, stream>>>(a);
+    return with_lanes(small_lanes(a.B, sm_count()),
+                      [&](auto K) {
+                        return launch_small<T, Model, decltype(K)::value>(a, stream);
+                      });
   }
-  return cudaGetLastError();
+}
+
+// The launch on `model` at width B: returns its dynamic shared memory a
+// block and sets its solves a block and lanes a solve.
+template <typename T, template <typename> class Model>
+int launch_shape(int B, int* solves, int* lanes) {
+  if constexpr (Model<T>::N > rq::kUnrollMax) {
+    *solves = kTeams;
+    *lanes = kTeamLanes;
+    return team_smem_bytes<T, Model>();
+  } else {
+    const int K = small_lanes(B, sm_count());
+    *solves = small_threads(K) / K;
+    *lanes = K;
+    return with_lanes(
+        K, [](auto k) { return small_smem_bytes<T, Model, decltype(k)::value>(); });
+  }
 }
 
 template <typename T>
@@ -378,16 +626,16 @@ extern "C" int RQ_ENTRY(ratilqr_candidate)(int model, int B, int T, const double
   return dispatch<Real>(model, a, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a block of kernel C takes on `model` (0 for one
-// solve per thread, -1 for an unsupported model); its teams per block and
-// lanes per team.
-extern "C" int RQ_ENTRY(ratilqr_candidate_smem)(int model, int* teams_per_block,
-                                                int* lanes_per_team) {
-  *teams_per_block = kTeams;
-  *lanes_per_team = kTeamLanes;
-  if (model == rq::kUnicycle) return team_smem_bytes<Real, rq::Unicycle>();
-  if (model == rq::kLqr) return team_smem_bytes<Real, rq::Lqr>();
-  if (model == rq::kQuadrotor) return team_smem_bytes<Real, rq::Quadrotor>();
-  if (model == rq::kCartpole) return team_smem_bytes<Real, rq::Cartpole>();
+// The launch of kernel C on `model` for a bank of B lanes on the current
+// device: returns the dynamic shared memory a block takes (-1 for an
+// unsupported model) and sets the solves a block and the lanes a solve.
+extern "C" int RQ_ENTRY(ratilqr_candidate_smem)(int model, int B, int* solves_per_block,
+                                                int* lanes_per_solve) {
+  int* const sb = solves_per_block;
+  int* const ls = lanes_per_solve;
+  if (model == rq::kUnicycle) return launch_shape<Real, rq::Unicycle>(B, sb, ls);
+  if (model == rq::kLqr) return launch_shape<Real, rq::Lqr>(B, sb, ls);
+  if (model == rq::kQuadrotor) return launch_shape<Real, rq::Quadrotor>(B, sb, ls);
+  if (model == rq::kCartpole) return launch_shape<Real, rq::Cartpole>(B, sb, ls);
   return -1;
 }

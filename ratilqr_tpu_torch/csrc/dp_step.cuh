@@ -2,9 +2,10 @@
 //
 // The algebra of ratilqr_tpu/ops/riccati_pallas.py:_riccati_kernel (and of
 // the plain ratilqr_tpu_torch/ops/riccati.py:_riccati_core), written once
-// for the three kernels: riccati.cu runs dp_step over streamed blocks,
-// step.cu over blocks its tile model recomputes, and candidate.cu runs
-// folded_step over the closed-loop fold.  References: ileqg.jl:341-465.
+// for the kernels: riccati.cu runs dp_step over streamed blocks, step.cu
+// over blocks its tile model recomputes, and riccati_folded.cu runs
+// folded_step over the closed-loop fold (candidate.cu runs its few-lane
+// twin, small_team.cuh).  References: ileqg.jl:341-465.
 #pragma once
 
 #include "smallmat.cuh"

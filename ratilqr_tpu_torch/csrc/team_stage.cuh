@@ -1,6 +1,6 @@
 // Block-wide staging for the one-solve-per-team kernels (candidate.cu,
 // step.cu, riccati.cu): a block holds K teams, team k on lane b0 + k of
-// the bank.
+// the bank (stage_lanes: the few-lane teams of candidate.cu at n ≤ 4).
 //
 // Once per step the block copies what its teams need from lane-minor
 // (·, C, B) arrays into each team's shared memory in one pass, and writes
@@ -92,6 +92,24 @@ __device__ __forceinline__ void stage_into(const T* src, int t, int64_t B, int b
     const int64_t b = b0 + k < B ? b0 + k : B - 1;
     copy_word<ASYNC>(dst(k) + c, src + (int64_t(t) * C + c) * B + b);
   }
+}
+
+// Copy C entries per lane of step t of a lane-minor (·, C, B) array to
+// dst[c][k] for the block's S lanes b0 + k: entry-major, as in device
+// memory, so a warp reads and writes runs of neighbouring words.  The
+// block's Threads threads each take one lane k and every (Threads / S)-th
+// entry, so a copy costs one address add.  Lanes past the bank read lane
+// B − 1.
+template <int C, int S, int Threads, bool ASYNC = false, typename T>
+__device__ __forceinline__ void stage_lanes(T (&dst)[C][S], const T* src, int t, int64_t B,
+                                            int b0) {
+  static_assert(Threads % S == 0, "the block's threads cover its lanes evenly");
+  const int k = threadIdx.x % S;
+  const int64_t b = b0 + k < B ? b0 + k : B - 1;
+  const T* from = src + int64_t(t) * C * B + b;
+#pragma unroll
+  for (int c = threadIdx.x / S; c < C; c += Threads / S)
+    copy_word<ASYNC>(&dst[c][k], from + c * B);
 }
 
 // stage_into field `f` of each team.

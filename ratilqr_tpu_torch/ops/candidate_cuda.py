@@ -2,9 +2,10 @@
 
 Counterpart of :mod:`ratilqr_tpu.ops.candidate_pallas` (both its stored and
 its recompute variant, which compute the same value).  The kernel runs one
-solve per thread on the small models and one solve per team of 16 lanes
-on the quadrotor (``csrc/candidate.cu``); the wrapper is the same for
-both.
+solve per team of 4 or 1 lanes on the small models (the launch picks
+from the bank's width and the SM count) and one solve per team of 16
+lanes on the quadrotor (``csrc/candidate.cu``); the wrapper is the same
+for both.
 :func:`candidate_bank` launches ``csrc/candidate.cu`` for a bank on a CUDA
 device and runs :func:`candidate_bank_plain` — ``approximate_folded``
 followed by the folded evaluating core (``candidate_pallas.py:427-432``) —
@@ -14,7 +15,7 @@ folded path without a tile model (``candidate_pallas.py:442-458``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -94,10 +95,35 @@ def candidate_layout(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
     return tm, ins
 
 
-def block_shared_memory(model_id: int, dtype) -> Tuple[int, int, int]:
-    """``(bytes, teams, lanes)`` of kernel C on a device model
+def block_shared_memory(model_id: int, dtype, B: int
+                        ) -> Tuple[int, int, int]:
+    """``(bytes, solves, lanes)`` of kernel C's launch on a device model for
+    a bank of ``B`` lanes on the current card: the dynamic shared memory a
+    block takes, its solves a block and lanes a solve (n ≤ 4: 4 or 1,
+    picked from B and the SM count; the quadrotor: 16)
     (:func:`~ratilqr_tpu_torch.ops._build.block_shared_memory`)."""
-    return _build.block_shared_memory(KERNEL, model_id, dtype)
+    return _build.block_shared_memory(KERNEL, model_id, dtype, B)
+
+
+def first_widths(model_id: int, dtype, B_max: int = 1 << 30
+                 ) -> Dict[int, int]:
+    """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
+    it}`` of kernel C on a device model on the current card, read from
+    :func:`block_shared_memory` (the launch takes fewer lanes a solve as
+    the bank widens)."""
+    def lanes(B):
+        return block_shared_memory(model_id, dtype, B)[2]
+
+    widths, B = {}, 1
+    while B <= B_max:
+        K = lanes(B)
+        widths[K] = B
+        lo, hi = B, B_max + 1   # lanes(lo) == K; hi: the first to take fewer
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if lanes(mid) < K else (mid, hi)
+        B = hi
+    return widths
 
 
 def launch_candidate(tm, ins, entry=None) -> CandidateOut:

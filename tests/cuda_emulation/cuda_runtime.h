@@ -6,7 +6,8 @@
 // __syncwarp() for its warp of 32) or returns; a barrier opens when every
 // thread of its block (or warp) that has not returned waits at it.
 // __shfl_sync goes through a per-warp exchange array between two warp
-// barriers; shared memory is one static buffer filled with NaN bytes
+// barriers; the device reports 132 SMs unless rq_emu_set_sm_count says
+// otherwise; shared memory is one static buffer filled with NaN bytes
 // before each block.  So one block takes one CPU core, however many
 // threads it has.  It checks a kernel's arithmetic, indexing and barriers
 // at small sizes; it says nothing of speed, and the lockstep it runs in
@@ -48,7 +49,20 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// The emulated card's SM count (an H100's 132 unless a test sets another
+// through rq_emu_set_sm_count).
+inline int g_sm_count = 132;
+extern "C" void rq_emu_set_sm_count(int sms) { g_sm_count = sms; }
+inline int cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = g_sm_count;
+  return cudaSuccess;
+}
 constexpr int kEmulatedSharedBytes = 232448;   // a block's limit on the H100
 template <class F>
 int cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {

@@ -26,10 +26,12 @@ SHARED = "extern __shared__ __align__(16) unsigned char smem_raw[];"
 DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def emulated_libraries(source: str, launches: int, out_dir: Path) -> dict:
-    """``{dtype: ctypes.CDLL}`` of ``csrc/<source>`` built for the CPU,
-    which must hold ``launches`` kernel launches; skips the calling test
-    without a C++20 compiler."""
+def emulated_libraries(source: str, launches: int, out_dir: Path,
+                       defines=()) -> dict:
+    """``{dtype: ctypes.CDLL}`` of ``csrc/<source>`` built for the CPU with
+    the macro definitions ``defines`` (``"NAME=value"``), which must hold
+    ``launches`` kernel launches; skips the calling test without a C++20
+    compiler."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a C++20 compiler (g++) to emulate the kernel")
@@ -44,7 +46,8 @@ def emulated_libraries(source: str, launches: int, out_dir: Path) -> dict:
         proc = subprocess.run(
             [cxx, "-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
              f"-I{HERE}", f"-I{_build.CSRC_DIR}",
-             f"-DRQ_DTYPE={_build._SUFFIXES.index(suffix)}", "-o", str(lib),
+             f"-DRQ_DTYPE={_build._SUFFIXES.index(suffix)}",
+             *(f"-D{d}" for d in defines), "-o", str(lib),
              str(path)], capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr[-3000:]
         return _build._bind(ctypes.CDLL(str(lib)), (suffix,))

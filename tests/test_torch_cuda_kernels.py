@@ -1,7 +1,9 @@
 """The four CUDA kernels against their plain PyTorch versions (unicycle,
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
 at its first use), kernels A's, B's, C's and D's one-solve-per-team designs
-on the quadrotor at the edges of their blocks (A also at B=262,144), A and
+on the quadrotor at the edges of their blocks (A also at B=262,144), kernel
+C's few-lane design at n <= 4 at widths that take each of its lanes a solve
+(4 and 1), A and
 B on the n=12 h_fail fixture, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
@@ -18,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ratilqr_tpu_torch import kernel_check as kc  # noqa: E402
-from ratilqr_tpu_torch.ops import _build  # noqa: E402
+from ratilqr_tpu_torch.ops import _build, tile_model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
@@ -154,20 +156,55 @@ def test_candidate_team_kernel_matches_plain(device, B, T, dtype):
     kc.check_candidate("quadrotor", T, B, dtype, device)
 
 
+SMALL_C = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
+           "cartpole": tile_model.CARTPOLE}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [4, 1])
+@pytest.mark.parametrize("model,T", [("unicycle", 20), ("lqr", 7),
+                                     ("cartpole", 30)])
+def test_candidate_small_kernel_at_each_lane_width(device, model, T, lanes,
+                                                   dtype):
+    """Kernel C at n <= 4 at a width whose launch takes 4 lanes a solve (a
+    ragged 133) or 1 (the first such width on this card, from the
+    launch's own query); θ from ``THETA_MIX``, so the θ = 1e6 lanes latch
+    m_fail."""
+    from ratilqr_tpu_torch.ops.candidate_cuda import first_widths
+    B = 133 if lanes == 4 else first_widths(SMALL_C[model], dtype)[1]
+    kc.check_candidate(model, T, B, dtype, device)
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "known fault: on this near-breakdown lane (θ = 0.05, lane 1062) the "
+    "float32 kernel at one lane a solve keeps m_fail False while the "
+    "plain float32 version and float64 latch it"))
+def test_candidate_near_breakdown_flag_cartpole(device):
+    """Kernel C on the cartpole at T=20, B=33,793 in float32 (one lane a
+    solve): its fail flags should equal the plain version's."""
+    kc.check_candidate("cartpole", 20, 33_793, torch.float32, device)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_candidate_design_follows_the_model(device, dtype):
-    """One solve per team, with its working set in dynamic shared memory,
-    on the quadrotor only; one solve per thread on the small models."""
-    from ratilqr_tpu_torch.ops import tile_model
-    from ratilqr_tpu_torch.ops.candidate_cuda import block_shared_memory
-    for model_id in (tile_model.UNICYCLE, tile_model.LQR,
-                     tile_model.CARTPOLE):
-        assert block_shared_memory(model_id, dtype)[0] == 0
-    nbytes, teams, lanes = block_shared_memory(tile_model.QUADROTOR, dtype)
+    """One solve per team of 16 lanes, with its working set in dynamic
+    shared memory, on the quadrotor; on the small models one solve per team
+    of 4 lanes, 32 a block, with staged steps in shared memory, up to SMs x
+    128 lanes (512 threads an SM), and of 1 lane, 64 a block, with none,
+    above."""
+    from ratilqr_tpu_torch.ops.candidate_cuda import (block_shared_memory,
+                                                      first_widths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for model_id in SMALL_C.values():
+        assert first_widths(model_id, dtype) == {4: 1, 1: sms * 128 + 1}
+        nbytes, solves, lanes = block_shared_memory(model_id, dtype, 1)
+        assert (solves, lanes) == (32, 4) and 0 < nbytes <= 48 * 1024
+        assert block_shared_memory(model_id, dtype, 262_144) == (0, 64, 1)
+    nbytes, teams, lanes = block_shared_memory(tile_model.QUADROTOR, dtype, 1)
     assert lanes in (16, 32) and teams * lanes % 32 == 0
     assert 0 < nbytes <= 232_448   # a block's limit on the H100
     with pytest.raises(NotImplementedError):
-        block_shared_memory(99, dtype)
+        block_shared_memory(99, dtype, 1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
