@@ -11,10 +11,10 @@ Phases (each prints a line and raises on failure):
   2. build: compiles the CUDA kernels from ratilqr_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each kernel's registers, spills
      and stack frame, and kernels A's, B's, C's and D's one-solve-per-team
-     kernels (the quadrotor) with their shared memory a block, and kernel
-     C's few-lane kernel at n <= 4 (each model and K, f32 and f64) with the
-     lanes a solve and shared memory its launch takes at the widths of the
-     paths below; then builds
+     kernels (the quadrotor) with their shared memory a block, and kernels
+     B's and C's few-lane kernels at n <= 4 (each model and K, f32 and
+     f64) with the lanes a solve and shared memory their launch takes at
+     the widths of the paths below; then builds
      kernel A at (6, 3) and kernel D at n=6,
      shapes outside the shipped library, float32 and float64, and prints
      each unit's build time and ptxas report;
@@ -26,11 +26,13 @@ Phases (each prints a line and raises on failure):
      (``kernel_check.H_FAIL``), kernel A's slim optimizing pass and
      kernel D (a shared and a per-lane noise model) on the quadrotor at
      B=262,144 in float32, kernels A and C on the unicycle T=30 at the
-     fleets' widths (B=256 and 640), kernel C on the unicycle, LQR and the
-     cartpole at the first width whose launch takes 1 lane a solve (read
-     from the launch's own query; the widths above take 4),
-     the θ = 1e6 lanes latching m_fail and the h_fail fixtures' lanes
-     h_fail;
+     fleets' widths (B=256 and 640), kernels B and C on the unicycle, LQR
+     and the cartpole at the first width whose launch takes 1 lane a solve
+     (read from the launch's own query; the widths above take 4), kernel
+     B on the cartpole's h_fail fixture, the θ = 1e6 lanes latching m_fail
+     and the h_fail fixtures' lanes h_fail; and kernels B and C on the
+     near-breakdown fixture (the cartpole T=20, B=33,793, f32), whose fail
+     flags must equal the plain version's on every lane;
   4. the unicycle bank at full width — the warm-started bank (T=100, bench
      configuration) cold and warm at B=16,384, warm at B=262,144, and a
      warm re-plan of at most 3 iterations in the default configuration at
@@ -54,8 +56,9 @@ Phases (each prints a line and raises on failure):
      candidate evaluation (A and D), 64 lanes of each against the CPU in
      float64, and one bank from numpy inputs on a problem on the card;
   7. the RAT iLQR path: ``MPCDriver`` planning the unicycle (T=100,
-     f32) twice (cold, then warm) through ``RATiLQRSolver`` and through
-     the single-call ``ratilqr_jit.solve``, on the folded candidate evaluation (kernel D)
+     f32) twice (cold, then warm) through ``RATiLQRSolver`` and once
+     (cold) through the single-call ``ratilqr_jit.solve``, on the folded
+     candidate evaluation (kernel D)
      and the fused step (kernel B), with the launch counts read around
      each path;
   7b. the RAT iLQR++ path: ``MPCDriver`` re-planning the unicycle (T=30,
@@ -79,17 +82,18 @@ Phases (each prints a line and raises on failure):
      1e-12);
   8c. MPC fleets (``mpc_episode``, seeds as bank lanes; the unicycle at
      T=30, f32, kernels A + C): the iLEQG fleet of 256 seeds x 3 steps
-     timed (median of 3) with its host syncs, launches and (over its
-     first step) idle share, a host-loop comparator, and seeds 0-3 against
-     one-seed episodes under the f32 rule; the RAT iLQR fleet of 64 seeds
-     (banks of 640 lanes) over 2 steps; both fleets in float64 on the card
+     timed (one run after its warm-up) with its host syncs, launches and
+     (over its first step) idle share, a host-loop comparator (one step,
+     scaled), and seeds 0-3 against one-seed episodes under the f32 rule;
+     the RAT iLQR fleet of 64 seeds (banks of 640 lanes) over 1 step;
+     both fleets in float64 on the card
      and on the CPU with the same generators; the RAT fleet's state
      through a checkpoint, continued bit for bit; ``ILEQGBankServer`` on
      5,000 requests against one direct bank, bit for bit;
   8d. sharded: the distributed layer (``ratilqr_tpu_torch.parallel``) on
      an NCCL group of one rank in this process — the θ-bank of the bench
      configuration at B=262,144, PETS at pets_16k through both elite
-     paths, the iLEQG fleet of 256 seeds x 2 steps — and the θ-bank at
+     paths, the iLEQG fleet of 256 seeds x 1 step — and the θ-bank at
      B=16,384 on two spawned gloo ranks sharing the card, each equal bit
      for bit to its unsharded run; then the parallel-in-time Riccati DP
      against kernel A on the unicycle (B=16, T=1,000 and 4,000): float64
@@ -97,8 +101,9 @@ Phases (each prints a line and raises on failure):
   9. timings: each kernel's wrapper, its launch alone and its plain
      version, beside its bound, on the unicycle (B=262,144; T=30 at
      RAT iLQR++'s widths B=1 and 942), the quadrotor (B=16,384 and
-     262,144) and the cartpole (B=16,384); kernel C's launch alone at the
-     fleets' widths (the unicycle T=30, B=256 and 640); warm solves/s.
+     262,144) and the cartpole (B=16,384); kernel B's launch alone at RAT
+     iLQR's width (the unicycle T=100, B=10) and kernel C's at the fleets'
+     widths (the unicycle T=30, B=256 and 640); warm solves/s.
 The CPU halves of the card-vs-CPU checks (phases 5, 6, 6b, 7b, 8 and 8c)
 depend on nothing the card computes: they run from the start in
 ``CPU_WORKERS`` spawned worker processes while the card works, and the
@@ -135,7 +140,7 @@ from ratilqr_tpu_torch import parallel
 from ratilqr_tpu_torch.models import (cartpole, gmm_integrator, quadrotor,
                                       unicycle)
 from ratilqr_tpu_torch.ops import (_build, candidate_cuda, riccati_cuda,
-                                   tile_model)
+                                   step_cuda, tile_model)
 from ratilqr_tpu_torch.ops.approx import Approximation, approximate_model
 from ratilqr_tpu_torch.ops.riccati import dp_optimize
 from ratilqr_tpu_torch.ops.riccati_parallel import dp_optimize_parallel
@@ -177,7 +182,9 @@ RAT_CONFIG = CrossEntropyConfig(
     num_samples=10, num_elite=3, iter_max=5, mu_init=0.005, sigma_init=0.01,
     ileqg=RAT_INNER)
 KL_BOUND = 0.05
-N_REPLANS = 2   # cut for the time limit: the cold re-plan alone takes 20-30 s
+# Re-plans a RAT iLQR entry point, cut for the time limit (the cold
+# re-plan alone takes 20-30 s): a cold and a warm one on the host path.
+N_REPLANS = {"ratilqr": 2, "ratilqr_jit": 1}
 B_CE = 16_384   # one CE generation at the bank size of the bank's path
 # RAT iLQR++ (benchmarks/run_all.py:121-182): the unicycle at T=30 in f32,
 # inner iter_max=30 with the fused candidate (kernels A + C), kl_bound 0.05.
@@ -207,13 +214,14 @@ FLEET_CONFIG = ILEQGConfig(iter_max=30, eps_history_cap=0,
                            fused_candidate_eval=True)
 FLEET_KERNELS = ("riccati", "candidate")
 FLEET_SEEDS, FLEET_STEPS = 256, 3        # iLEQG at θ = 0
+FLEET_TIMED = 1          # timed runs after the warm-up (cut for the limit)
 FLEET_PROFILED = 1       # steps of the profiled run (idle share)
 FLEET_CHECKED = (4, 2)   # seeds 0-3 against one-seed episodes, 2 steps
 RAT_FLEET_CONFIG = CrossEntropyConfig(num_samples=10, iter_max=5,
                                       mu_init=0.005, sigma_init=0.01,
                                       ileqg=FLEET_CONFIG)
 RAT_FLEET_SEEDS = 64
-RAT_FLEET_STEPS = 2      # run_all.py runs 10; cut for the time limit
+RAT_FLEET_STEPS = 1      # run_all.py runs 10; cut for the time limit
 FLEET_KL = 0.05
 FLEET64 = {"ileqg": (8, 3), "ratilqr": (4, 2)}   # (seeds, steps), f64
 # The widths of the fleets' banks (seeds; seeds x CE samples), at which
@@ -227,7 +235,7 @@ SERVE_BANK = 2_048
 # θ-bank on an NCCL group of one rank, and at B_MAIN on two gloo ranks
 # sharing the card; the parallel-in-time Riccati DP against kernel A.
 SHARDED_CONFIG = CrossEntropyConfig(ileqg=BENCH_CONFIG)
-SHARDED_FLEET_STEPS = 2
+SHARDED_FLEET_STEPS = 1
 SHARDED_RANKS = 2
 RANK_TIMEOUT_S = 300
 PDP_LANES = 16
@@ -253,9 +261,15 @@ DESIGNS = {   # how each kernel spreads a bank over the card
                 "m <= 4, n + m <= 16), e.g. (6, 3); one solve per thread "
                 "otherwise: the unicycle, LQR and the cartpole"),
     "step": ("one solve per team of 16 lanes (two a warp, 8 a block, "
-             "working set in shared memory) at n=12, the quadrotor; one "
-             "solve per thread at n <= 4, the unicycle, LQR and the "
-             "cartpole"),
+             "working set in shared memory) at n=12, the quadrotor; at "
+             "n <= 4 (the unicycle, LQR and the cartpole) one solve per "
+             "team of K = 4 or 1 lanes of a warp (K picked by the rule "
+             "kernel C shares), every lane rolling out and calling the "
+             "model in registers, the lanes splitting M's and H's solves "
+             "and the DP's products by shuffles; 128 threads a block (64 "
+             "at K = 1), no shared memory; the model blocks of step t - 1 "
+             "computed during the DP step of step t; M, H and their "
+             "factors under the contraction policy"),
     "candidate": ("one solve per team of 16 lanes (two a warp, 8 a block, "
                   "working set in shared memory) at n=12, the quadrotor; at "
                   "n <= 4 (the unicycle, LQR and the cartpole) one solve per "
@@ -361,12 +375,11 @@ def build():
                   *smem[True])
               + ", ".join(f"{'shared' if w else 'per-lane'} W {v[0]} B"
                           for w, v in smem.items()), flush=True)
-    for label, kernel, args in (("B", "step", ()),
-                                ("C", "candidate", (B_MAIN,))):
+    for label, kernel in (("B", "step"), ("C", "candidate")):
         for dtype, name in ((torch.float32, "float"),
                             (torch.float64, "double")):
             nbytes, teams, lanes = _build.block_shared_memory(
-                kernel, tile_model.QUADROTOR, dtype, *args)
+                kernel, tile_model.QUADROTOR, dtype, B_MAIN)
             entry = f"{kernel}_team_kernel"
             for fn, regs, stores, loads, stack in rows:   # demangled or not
                 if f"{entry}<{name}," in fn or f"{entry}I{name[0]}" in fn:
@@ -375,7 +388,7 @@ def build():
                           f"frame, {stores} B spill stores, {nbytes} B "
                           f"dynamic shared memory a block of {teams} teams "
                           f"of {lanes} lanes", flush=True)
-    small_candidate_report(rows)
+    small_report(rows)
     units = [(kernel, shape, suffix)
              for kernel, shape in (("riccati", (6, 3)),
                                    ("riccati_folded", (6,)))
@@ -392,42 +405,53 @@ def build():
             print("  " + line, flush=True)
 
 
-# Kernel C's models at n <= 4 and the horizons phase 3 checks them at.
+# Kernels B's and C's models at n <= 4 and the horizons phase 3 checks
+# them at.
 SMALL_C_MODELS = {"unicycle": (tile_model.UNICYCLE, FLEET_T),
                   "lqr": (tile_model.LQR, 7),
                   "cartpole": (tile_model.CARTPOLE, CART_T)}
+# Kernels B's and C's few-lane designs: (label, kernel, wrapper module).
+SMALL_KERNELS = (("B", "step", step_cuda), ("C", "candidate", candidate_cuda))
+# The near-breakdown fixture on which kernels B's and C's float32 fail
+# flags disagreed with the plain version's before the contraction policy
+# (csrc/smallmat.cuh): (model, horizon, width).
+FLAG_CASE = ("cartpole", 20, 33_793)
+RAT_WIDTH = RAT_CONFIG.num_samples   # RAT iLQR's banks (kernel B, T=100)
 
 
-def one_lane_widths(dtype):
-    """{model: the first width at which kernel C's launch at n <= 4 takes
-    one lane a solve on this card}, from the launch's own query."""
-    return {model: candidate_cuda.first_widths(model_id, dtype)[1]
+def one_lane_widths(module, dtype):
+    """{model: the first width at which kernel B's or C's launch (the
+    wrapper ``module``'s) at n <= 4 takes one lane a solve on this card},
+    from the launch's own query."""
+    return {model: module.first_widths(model_id, dtype)[1]
             for model, (model_id, _) in SMALL_C_MODELS.items()}
 
 
-def small_candidate_report(rows):
-    """Phase 2: kernel C's few-lane kernel (n <= 4): each instantiation's
-    ptxas report, and the lanes a solve, solves a block and shared memory
-    its launch takes at the widths of this script."""
-    for fn, regs, stores, loads, stack in rows:
-        if "candidate_kernel" in fn:
-            print(f"kernel C, few lanes a solve (n <= 4) "
-                  f"{_build.short_name(fn)}: {regs} registers, {stack} B "
-                  f"stack frame, {stores} B spill stores, {loads} B spill "
-                  "loads", flush=True)
-    for dtype in (torch.float32, torch.float64):
-        for model, (model_id, _) in SMALL_C_MODELS.items():
-            shapes = []
-            for B in sorted({1, 5, 942, *FLEET_WIDTHS, 4_099, B_MAIN,
-                             *candidate_cuda.first_widths(
-                                 model_id, dtype).values(), B_WIDE}):
-                nbytes, solves, lanes = candidate_cuda.block_shared_memory(
-                    model_id, dtype, B)
-                shapes.append(f"B={B}: K={lanes}, {solves} solves, "
-                              f"{nbytes} B")
-            print(f"kernel C, few lanes a solve ({model}, {dtype}), launch "
-                  "by width (lanes a solve, solves a block, shared memory "
-                  "a block): " + "; ".join(shapes), flush=True)
+def small_report(rows):
+    """Phase 2: kernels B's and C's few-lane kernels (n <= 4): each
+    instantiation's ptxas report, and the lanes a solve, solves a block and
+    shared memory the launch takes at the widths of this script."""
+    for label, kernel, module in SMALL_KERNELS:
+        for fn, regs, stores, loads, stack in rows:
+            if f"{kernel}_kernel" in fn:   # not the team kernel
+                print(f"kernel {label}, few lanes a solve (n <= 4) "
+                      f"{_build.short_name(fn)}: {regs} registers, {stack} B "
+                      f"stack frame, {stores} B spill stores, {loads} B "
+                      "spill loads", flush=True)
+        for dtype in (torch.float32, torch.float64):
+            for model, (model_id, _) in SMALL_C_MODELS.items():
+                shapes = []
+                for B in sorted({1, 5, RAT_WIDTH, 942, *FLEET_WIDTHS, 4_099,
+                                 B_MAIN, *module.first_widths(
+                                     model_id, dtype).values(), B_WIDE}):
+                    nbytes, solves, lanes = module.block_shared_memory(
+                        model_id, dtype, B)
+                    shapes.append(f"B={B}: K={lanes}, {solves} solves, "
+                                  f"{nbytes} B")
+                print(f"kernel {label}, few lanes a solve ({model}, {dtype}),"
+                      " launch by width (lanes a solve, solves a block, "
+                      "shared memory a block): " + "; ".join(shapes),
+                      flush=True)
 
 
 def check_kernels(device):
@@ -455,8 +479,9 @@ def check_kernels(device):
             for model, horizon in cases:
                 keep("candidate", kernel_check.check_candidate(
                     model, horizon, B, dtype, device))
-            for model, horizon in cases + [("negative_curvature", 7),
-                                           (kernel_check.H_FAIL, QUAD_T)]:
+            for model, horizon in cases + [
+                    ("negative_curvature", 7), (kernel_check.H_FAIL, QUAD_T),
+                    (kernel_check.h_fail_fixture("cartpole"), CART_T)]:
                 keep("step", kernel_check.check_step(model, horizon, B, dtype,
                                                      device))
         for B in FLEET_WIDTHS:   # the fleets' path: kernels A and C
@@ -466,12 +491,16 @@ def check_kernels(device):
             keep("candidate", kernel_check.check_candidate(
                 "unicycle", FLEET_T, B, dtype, device))
             kernel_check.clear_caches()
-        # Kernel C at n <= 4 takes 4 lanes a solve at every width above;
-        # these are the first at which its launch takes 1.
-        one_lane = one_lane_widths(dtype)
+        # Kernels B and C at n <= 4 take 4 lanes a solve at every width
+        # above; these are the first at which their launch takes 1.
+        one_lane = one_lane_widths(candidate_cuda, dtype)
         for model, (model_id, horizon) in SMALL_C_MODELS.items():
             keep("candidate", kernel_check.check_candidate(
                 model, horizon, one_lane[model], dtype, device))
+        one_lane_b = one_lane_widths(step_cuda, dtype)
+        for model, (model_id, horizon) in SMALL_C_MODELS.items():
+            keep("step", kernel_check.check_step(
+                model, horizon, one_lane_b[model], dtype, device))
         torch.cuda.empty_cache()
         f32 = dtype == torch.float32
         if f32:
@@ -489,7 +518,8 @@ def check_kernels(device):
               f"B=1, B=5 and B=4099; the unicycle T={FLEET_T} at the "
               f"fleets' widths B={FLEET_WIDTHS[0]} and B={FLEET_WIDTHS[1]} "
               f"(A, C); C on the unicycle, LQR and the cartpole at "
-              f"B={', '.join(map(str, one_lane.values()))} (the first "
+              f"B={', '.join(map(str, one_lane.values()))} and B at "
+              f"B={', '.join(map(str, one_lane_b.values()))} (the first "
               f"widths taking 1 lane a solve)"
               + (f", A's slim optimizing pass and D (shared and per-lane W)"
                  f" on the quadrotor at B={B_WIDE}" if f32 else "") + ", "
@@ -535,6 +565,18 @@ def check_kernels(device):
     print(f"fail latching, quadrotor (n=12) h_fail fixture: {h_fail} μ=-1e6 "
           f"lanes of 4099 latch h_fail and {m_fail} θ=1e6 lanes m_fail in "
           "kernel A", flush=True)
+    model, horizon, B = FLAG_CASE
+    errs = {label: kernel_check.check_candidate(*FLAG_CASE, torch.float32,
+                                                device)
+            if kernel == "candidate" else
+            kernel_check.check_step(*FLAG_CASE, torch.float32, device)
+            for label, kernel, _ in SMALL_KERNELS}
+    print(f"fail flags, near-breakdown fixture ({model} T={horizon} B={B} "
+          "float32, 1 lane a solve): kernel B's m_fail and h_fail and kernel "
+          "C's m_fail equal the plain version's on every lane; max |kernel "
+          "- plain| (plain's own error vs float64): " + ", ".join(
+              f"{label} {e:.3e} ({p:.3e})" for label, (e, p) in errs.items()),
+          flush=True)
     return err32
 
 
@@ -876,7 +918,8 @@ def rat_problem(device, dtype=torch.float32):
 
 
 def rat_mpc(device):
-    """Phase 7: N_REPLANS MPC re-plans through each RAT iLQR entry point;
+    """Phase 7: N_REPLANS[entry] MPC re-plans through each RAT iLQR entry
+    point;
     returns the launch counts of the path."""
     f32 = torch.float32
     prob = rat_problem(device)
@@ -909,7 +952,7 @@ def rat_mpc(device):
         steps = MPCDriver(prob, counted).run(
             torch.zeros(3, dtype=f32, device=device),
             torch.zeros((T, 2), dtype=f32, device=device),
-            torch.Generator().manual_seed(0), N_REPLANS)
+            torch.Generator().manual_seed(0), N_REPLANS[name])
         counts = dict(_build.launch_counts)
         for k, (step, (res, syncs, launches)) in enumerate(
                 zip(steps, records)):
@@ -927,7 +970,7 @@ def rat_mpc(device):
                   flush=True)
         lat = sorted(s.plan_time_s for s in steps[1:])
         warm = (f"warm re-plan p50 {lat[len(lat) // 2] * 1e3:.1f} ms over "
-                f"re-plans 1-{N_REPLANS - 1}, " if lat else "")
+                f"re-plans 1-{N_REPLANS[name] - 1}, " if lat else "")
         print(f"RAT iLQR {name}: {warm}cold "
               f"{steps[0].plan_time_s * 1e3:.1f} ms (host clock, device "
               f"synchronized); "
@@ -1166,13 +1209,12 @@ def ce_generation(device, name_power, job):
     n_failed = int(res.failed.sum())
     assert n_failed == 0, f"CE generation: {n_failed} failed lanes"
     assert bool(torch.isfinite(costs).all())
-    again = sync_time(lambda: cost_fn(x0, u0, thetas, KL_BOUND))[1]
     _, wall, busy = device_busy(lambda: cost_fn(x0, u0, thetas, KL_BOUND))
     assert busy > 0, "the profiled CE generation ran nothing on the card"
     print(f"CE generation B={B_CE} (unicycle T={T}, f32): 0 failed, costs "
           f"{float(costs.min()):.6f}..{float(costs.max()):.6f}, iterations "
           f"{int(res.iterations.min())}..{int(res.iterations.max())}; "
-          f"first run {secs:.3f} s, then {again:.3f} s (host clock); "
+          f"first run {secs:.3f} s (host clock); "
           f"profiled run {wall:.3f} s wall, device busy "
           f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.4f} "
           f"({name_power})", flush=True)
@@ -1227,7 +1269,7 @@ def f32_noise_world(prob):
 
 def fleet_ileqg(device, name_power):
     """Phase 8c, first part: the iLEQG fleet at full width (FLEET_SEEDS x
-    FLEET_STEPS), timed by ``time_fn`` (median of 3), its warm-up run
+    FLEET_STEPS), timed by ``time_fn`` (FLEET_TIMED runs), its warm-up run
     with the launch and host-sync counts read around it, and the first
     FLEET_PROFILED steps profiled; the host-loop comparator; seeds 0-3
     against one-seed episodes under the f32 rule.  Returns the launch
@@ -1251,7 +1293,7 @@ def fleet_ileqg(device, name_power):
                      launched=dict(_build.launch_counts))
         return out
 
-    stats = time_fn(episodes, warmup=1, reps=3)
+    stats = time_fn(episodes, warmup=1, reps=FLEET_TIMED)
     out, launched = first["out"], first["launched"]
     expect_path("iLEQG fleet", launched, FLEET_KERNELS)
     assert out.xs.shape == (FLEET_SEEDS, FLEET_STEPS + 1, 3)
@@ -1266,8 +1308,9 @@ def fleet_ileqg(device, name_power):
     print(f"iLEQG fleet unicycle T={FLEET_T} f32, {FLEET_SEEDS} seeds x "
           f"{FLEET_STEPS} steps (one bank of {FLEET_SEEDS} lanes a step): "
           f"{FLEET_SEEDS / med:.3f} episodes/s, "
-          f"{FLEET_SEEDS * FLEET_STEPS / med:.2f} re-plans/s (median of 3 "
-          f"by time_fn: {med:.3f} s a fleet, best {stats['best']:.3f} s, "
+          f"{FLEET_SEEDS * FLEET_STEPS / med:.2f} re-plans/s (median of "
+          f"{FLEET_TIMED} by time_fn: {med:.3f} s a fleet, best "
+          f"{stats['best']:.3f} s, "
           f"first call {stats['compile']:.3f} s, host syncs counted); "
           f"{first['syncs'] / FLEET_STEPS:.1f} host syncs a step; profiled "
           f"run of steps 0-{FLEET_PROFILED - 1} {wall:.3f} s wall, device "
@@ -1277,7 +1320,7 @@ def fleet_ileqg(device, name_power):
           f"{launched.get('candidate', 0)}; mean total cost "
           f"{float(out.total_cost.mean()):.6f} ({name_power})", flush=True)
 
-    steps = 3   # the host-loop comparator: one seed through MPCDriver
+    steps = 1   # the host-loop comparator: one seed through MPCDriver
     driver = MPCDriver(prob, lambda x, u, g: ileqg.solve(
         prob, FLEET_CONFIG, x, u, 0.0))
     _, secs = sync_time(lambda: driver.run(x0, u0, seed_generators(1)[0],
@@ -1798,6 +1841,21 @@ def timings(device, name_power):
                   f"{bound:.5f} ms ({by}) (median of 5, the plain version "
                   f"one run, after a warm-up each, CUDA events; "
                   f"{name_power})", flush=True)
+    # RAT iLQR's banks: kernel B alone, no plain version.
+    _, layout, launch, _ = kernel_check.timing_cases(
+        "unicycle", T, RAT_WIDTH, f32, device)["step"]()
+    args = layout()
+    launch_ms = kernel_check.time_ms(lambda: launch(args))
+    bound, by = kernel_check.bound_ms("step", 3, 2, T, RAT_WIDTH, f32)
+    lanes = step_cuda.block_shared_memory(tile_model.UNICYCLE, f32,
+                                          RAT_WIDTH)[2]
+    result[("unicycle_rat", RAT_WIDTH)] = {"step": dict(
+        launch_ms=launch_ms, bound_ms=bound, bound_by=by, lanes=lanes)}
+    print(f"time step unicycle T={T} B={RAT_WIDTH} f32 (RAT iLQR's width, "
+          f"{lanes} lanes a solve): launch alone {launch_ms:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}) (median of 5, after a warm-up, CUDA "
+          f"events; {name_power})", flush=True)
+    del args
     for B in FLEET_WIDTHS:   # the fleets' banks: kernel C alone, no plain
         _, layout, launch, _ = kernel_check.timing_cases(
             "unicycle", FLEET_T, B, f32, device)["candidate"]()
@@ -1835,8 +1893,10 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     the top level, the cartpole path (T=50, B=16,384, f32) under
     ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``,
     the quadrotor at B=262,144 under ``"quadrotor_wide"``, the unicycle
-    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"`` and (kernel C,
-    launch alone) at the fleets' widths under ``"unicycle_fleet"``."""
+    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"``, (kernel C,
+    launch alone) at the fleets' widths under ``"unicycle_fleet"`` and
+    (kernel B, launch alone) at RAT iLQR's width (T=100, B=10) under
+    ``"unicycle_rat"``."""
     rows = []
     for name, (src, rep) in KERNELS.items():
         quad = times[("quadrotor", B_MAIN)][name]
@@ -1874,7 +1934,11 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
             **({"unicycle_fleet": {
                 f"B={B}": {**times[("unicycle_fleet", B)][name],
                            "at": f"unicycle n=3 m=2 T={FLEET_T} B={B} f32"}
-                for B in FLEET_WIDTHS}} if name == "candidate" else {})})
+                for B in FLEET_WIDTHS}} if name == "candidate" else {}),
+            **({"unicycle_rat": {
+                **times[("unicycle_rat", RAT_WIDTH)][name],
+                "at": f"unicycle n=3 m=2 T={T} B={RAT_WIDTH} f32"}}
+               if name == "step" else {})})
     return {"kernels": rows}
 
 

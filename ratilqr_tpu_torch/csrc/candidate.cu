@@ -26,11 +26,12 @@
 // value and m_fail are written, by lane 0.  A block is 128 threads where
 // K > 1 and 64 at K = 1, one solve per K of them, on consecutive lanes b.
 //
-// The launch picks K from B and the card's SM count (small_lanes): 4
-// while that keeps the bank within kSmallFill = 512 threads an SM, so up
-// to B = 16,896 on an H100's 132 SMs, 1 above (at ~1,000 threads an SM
-// the lanes' replicated model, fold and factor cost more issue slots than
-// the extra warps save; K = 2 between the two tied K = 1 when measured,
+// The launch picks K from B and the card's SM count (small_lanes,
+// small_launch.cuh, the rule kernel B shares): 4 while that keeps the bank
+// within kSmallFill = 512 threads an SM, so up to B = 16,896 on an H100's
+// 132 SMs, 1 above (at ~1,000 threads an SM the lanes' replicated model,
+// fold and factor cost more issue slots than the extra warps save; K = 2
+// between the two tied K = 1 when measured,
 // team_sweep.py candidate, so the launch does not take it).  One lane
 // a solve everywhere (the former design) left one warp a scheduler at
 // B = 16,384 and most SMs empty at the widths of RAT iLQR++ and the
@@ -104,9 +105,16 @@
 // B = 16,384 and T = 50, 0.030 GB (0.009 ms) against 7.8e8 operations
 // (0.012 ms), bound by the FP32 rate.
 #include <cstdint>
-#include <type_traits>
+
+// The contraction policy at kCarry (smallmat.cuh): at kFactor alone this
+// kernel's float32 m_fail disagreed with the plain version's on a lane
+// near neurotic breakdown.
+#ifndef RQ_PSD_ROUNDING
+#define RQ_PSD_ROUNDING 2
+#endif
 
 #include "dtype.cuh"
+#include "small_launch.cuh"
 #include "small_team.cuh"
 #include "team_mat.cuh"
 #include "team_stage.cuh"
@@ -114,6 +122,10 @@
 
 namespace {
 
+using rq::small::sm_count;
+using rq::small::small_lanes;
+using rq::small::small_threads;
+using rq::small::with_lanes;
 using rq::team::kTeamLanes;
 using rq::team::kTeams;
 
@@ -127,30 +139,15 @@ struct CandidateArgs {
 
 // ---- One solve per team of K lanes (N ≤ rq::kUnrollMax) ----
 
-// Threads a block of candidate_kernel where K > 1 and at K = 1; whether
-// a team of K > 1 lanes stages its streamed steps in shared memory by
-// cp.async (1) or reads them from device memory where it uses them (0;
-// K = 1 always does); its lanes a solve (0: the launch picks K from B and
-// the SM count); and the threads an SM that pick fills up to.
-// -DRQ_SMALL_THREADS/-DRQ_WIDE_THREADS/-DRQ_SMALL_STAGE/-DRQ_SMALL_LANES
+// Whether a team of K > 1 lanes stages its streamed steps in shared
+// memory by cp.async (1) or reads them from device memory where it uses
+// them (0; K = 1 always does).  The launch picks K, and the threads a
+// block, by small_launch.cuh's rule.  -DRQ_SMALL_STAGE (and
+// small_launch.cuh's -DRQ_SMALL_THREADS/-DRQ_WIDE_THREADS/-DRQ_SMALL_LANES)
 // build the variants python -m ratilqr_tpu_torch.team_sweep times.
-#ifndef RQ_SMALL_THREADS
-#define RQ_SMALL_THREADS 128
-#endif
-#ifndef RQ_WIDE_THREADS
-#define RQ_WIDE_THREADS 64
-#endif
 #ifndef RQ_SMALL_STAGE
 #define RQ_SMALL_STAGE 1
 #endif
-#ifndef RQ_SMALL_LANES
-#define RQ_SMALL_LANES 0
-#endif
-constexpr int kSmallFill = 512;
-
-__host__ __device__ constexpr int small_threads(int K) {
-  return K > 1 ? RQ_SMALL_THREADS : RQ_WIDE_THREADS;
-}
 
 // Whether a team of K lanes computes the fold of step t − 1 during the
 // DP step of step t, and whether it also stages its steps.  Both pay where
@@ -162,8 +159,6 @@ __host__ __device__ constexpr bool small_staged(int K) {
   return RQ_SMALL_STAGE == 1 && small_ahead(K);
 }
 static_assert(RQ_SMALL_STAGE == 0 || RQ_SMALL_STAGE == 1, "staging is off or on");
-static_assert(RQ_SMALL_LANES == 0 || RQ_SMALL_LANES == 1 || RQ_SMALL_LANES == 4,
-              "a solve takes 1 or 4 lanes");
 
 // One step's streamed inputs for a block's S solves, entry-major as in
 // device memory: x̄_t, l_t, L_t, x_t, and W_t, W⁻¹_t, logdet W_t once.
@@ -518,24 +513,6 @@ constexpr int small_smem_bytes() {
              : 0;
 }
 
-// The card's SM count (1 if the runtime cannot say).
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 1;
-  return sms;
-}
-
-// Lanes a solve at n ≤ kUnrollMax for a bank of B on `sms` SMs: 4 where
-// that keeps the bank within kSmallFill threads an SM, so a narrow bank
-// spreads its solves over more warps, else 1: a wide bank fills the card
-// anyway.
-int small_lanes(int B, int sms) {
-  if (RQ_SMALL_LANES > 0) return RQ_SMALL_LANES;
-  return int64_t(B) * 4 <= int64_t(sms) * kSmallFill ? 4 : 1;
-}
-
 template <typename T, template <typename> class Model, int K>
 int launch_small(const CandidateArgs& a, cudaStream_t stream) {
   constexpr int bytes = small_smem_bytes<T, Model, K>(), solves = small_threads(K) / K;
@@ -547,18 +524,6 @@ int launch_small(const CandidateArgs& a, cudaStream_t stream) {
   }
   kernel<<<(a.B + solves - 1) / solves, small_threads(K), bytes, stream>>>(a);
   return cudaGetLastError();
-}
-
-// f(k) for the K that small_lanes picked: 4 or 1, or the one a variant
-// fixes.
-template <typename F>
-int with_lanes(int K, F f) {
-  if constexpr (RQ_SMALL_LANES > 0) {
-    return f(std::integral_constant<int, RQ_SMALL_LANES>{});
-  } else {
-    if (K == 4) return f(std::integral_constant<int, 4>{});
-    return f(std::integral_constant<int, 1>{});
-  }
 }
 
 // One solve per team of kTeamLanes lanes above kUnrollMax; one per team of

@@ -31,7 +31,8 @@ __device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)
 }
 
 // M = sym(W⁻¹ − θS), its factor Mc, and D = I + θ (M⁻¹S)ᵀ.  Returns
-// whether M is positive definite.
+// whether M is positive definite.  M and its factor are formed under the
+// contraction policy (smallmat.cuh).
 template <typename T, int N>
 __device__ __forceinline__ bool m_factor(T theta, const T (&Wi)[N][N], const T (&S)[N][N],
                                          T (&Mc)[N][N], T (&D)[N][N]) {
@@ -39,7 +40,7 @@ __device__ __forceinline__ bool m_factor(T theta, const T (&Wi)[N][N], const T (
 #pragma unroll (rq::Unroll<N>::value)
   for (int i = 0; i < N; ++i)
 #pragma unroll (rq::Unroll<N>::value)
-    for (int j = 0; j < N; ++j) Mm[i][j] = Wi[i][j] - theta * S[i][j];
+    for (int j = 0; j < N; ++j) Mm[i][j] = msub<kFactor>(Wi[i][j], theta, S[i][j]);
   sym_inplace<T, N>(Mm);
   chol<T, N>(Mm, Mc);
   T MinvS[N][N];

@@ -12,12 +12,78 @@
 //
 // Build WITHOUT --use_fast_math: the PSD test relies on sqrt of a negative
 // giving NaN, on isfinite, and on pivots compared with 0.
+//
+// Contraction policy.  nvcc fuses a product and a sum written as a·b + c
+// into one multiply-add (one rounding, not two) wherever it likes; the
+// plain versions round every product and every sum.  Most of the algebra
+// may differ so: the tolerances cover it.  A fail flag may not: on a lane
+// near neurotic breakdown the sign of M's last pivot, and so m_fail, comes
+// out of those roundings.  So where the PSD decisions are made, the kernels
+// round each product and each sum on their own, with the _rn intrinsics,
+// which nvcc never contracts (mul_rn, add_rn, sub_rn; madd and msub below):
+//   - kFactor, in every design: M = W⁻¹ − θS, formed for its factor
+//     (dp_step.cuh:m_factor, small_team.cuh:m_factor, team_mat.cuh:
+//     m_factor), and the pivot sums of every Cholesky factor (chol here,
+//     which also factors H and so decides h_fail; team_mat.cuh:chol_rows);
+//   - kCarry, in the few-lane algebra at n ≤ 4 (small_team.cuh): also
+//     the rest of the DP step, whose products carry S_{t+1} into S_t and
+//     so into the next step's M: the solves with M's factor, D, DS and
+//     AᵀDS·A (and in the optimizing step BᵀDS, G, H, H's solves and the
+//     gain terms).
+// Each kernel source takes the level its fail flags need (the default
+// here, kFactor, or kCarry: candidate.cu), measured on the fixture that
+// showed the fault, the cartpole at T = 20, B = 33,793 in float32
+// (python -m ratilqr_tpu_torch.team_sweep flags; PERF.md §7): kernel C at
+// kFactor kept m_fail False on lane 1062 (θ = 0.05) where the plain
+// float32 version and float64 latch it, and agreed at kCarry, as a build
+// without any contraction did; kernel B's flags agreed at every level.
+// kCarry costs kernel B 2-5% at its widest banks (its whole optimizing
+// step loses its multiply-adds), so B stays at kFactor.  The model calls,
+// the fold and the value's sums stay nvcc's.  -DRQ_PSD_ROUNDING=0|1|2
+// builds a source with the policy off, at kFactor or at kCarry, for
+// team_sweep to time and check.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef RQ_PSD_ROUNDING
+#define RQ_PSD_ROUNDING 1
+#endif
+
 namespace rq {
+
+// The sites of the contraction policy (kFree: none, as written).
+enum Psd { kFree = 0, kFactor = 1, kCarry = 2 };
+static_assert(RQ_PSD_ROUNDING >= 0 && RQ_PSD_ROUNDING <= 2, "policy off, kFactor or kCarry");
+
+// Whether the build rounds the products and sums of `site` one by one.
+template <int site>
+constexpr bool kRounded = site != kFree && site <= RQ_PSD_ROUNDING;
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// a + b·c and a − b·c: the product rounded before the sum where the policy
+// covers `site`, else as written.
+template <int site, typename T>
+__device__ __forceinline__ T madd(T a, T b, T c) {
+  if constexpr (kRounded<site>)
+    return add_rn(a, mul_rn(b, c));
+  else
+    return a + b * c;
+}
+template <int site, typename T>
+__device__ __forceinline__ T msub(T a, T b, T c) {
+  if constexpr (kRounded<site>)
+    return sub_rn(a, mul_rn(b, c));
+  else
+    return a - b * c;
+}
 
 // Loops over a dimension D of the algebra unroll in full up to
 // kUnrollMax (the unicycle and LQR: every array stays in registers) and
@@ -44,7 +110,7 @@ __device__ __forceinline__ void chol(const T (&M)[N][N], T (&L)[N][N]) {
       }
       T acc = M[i][j];
 #pragma unroll (rq::Unroll<N>::value)
-      for (int k = 0; k < j; ++k) acc = acc - L[i][k] * L[j][k];
+      for (int k = 0; k < j; ++k) acc = msub<kFactor>(acc, L[i][k], L[j][k]);
       L[i][j] = (i == j) ? sqrt(acc) : acc / L[j][j];
     }
   }
@@ -60,7 +126,7 @@ __device__ __forceinline__ bool chol_ok(const T (&L)[N][N]) {
 }
 
 // x = M⁻¹ b from the Cholesky factor L of M.
-template <typename T, int N>
+template <typename T, int N, int site = kFree>
 __device__ __forceinline__ void cho_solve_vec(const T (&L)[N][N], const T (&b)[N],
                                               T (&x)[N]) {
   T y[N];
@@ -68,20 +134,20 @@ __device__ __forceinline__ void cho_solve_vec(const T (&L)[N][N], const T (&b)[N
   for (int i = 0; i < N; ++i) {
     T acc = b[i];
 #pragma unroll (rq::Unroll<N>::value)
-    for (int k = 0; k < i; ++k) acc = acc - L[i][k] * y[k];
+    for (int k = 0; k < i; ++k) acc = msub<site>(acc, L[i][k], y[k]);
     y[i] = acc / L[i][i];
   }
 #pragma unroll (rq::Unroll<N>::value)
   for (int i = N - 1; i >= 0; --i) {
     T acc = y[i];
 #pragma unroll (rq::Unroll<N>::value)
-    for (int k = i + 1; k < N; ++k) acc = acc - L[k][i] * x[k];
+    for (int k = i + 1; k < N; ++k) acc = msub<site>(acc, L[k][i], x[k]);
     x[i] = acc / L[i][i];
   }
 }
 
 // X = M⁻¹ B column by column; B is N×P.
-template <typename T, int N, int P>
+template <typename T, int N, int P, int site = kFree>
 __device__ __forceinline__ void cho_solve_mat(const T (&L)[N][N], const T (&B)[N][P],
                                               T (&X)[N][P]) {
 #pragma unroll (rq::Unroll<P>::value)
@@ -89,7 +155,7 @@ __device__ __forceinline__ void cho_solve_mat(const T (&L)[N][N], const T (&B)[N
     T b[N], x[N];
 #pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) b[i] = B[i][j];
-    cho_solve_vec<T, N>(L, b, x);
+    cho_solve_vec<T, N, site>(L, b, x);
 #pragma unroll (rq::Unroll<N>::value)
     for (int i = 0; i < N; ++i) X[i][j] = x[i];
   }
@@ -105,7 +171,7 @@ __device__ __forceinline__ T cho_logdet(const T (&L)[N][N]) {
 }
 
 // C = A B  (A: P×Q, B: Q×R).
-template <typename T, int P, int Q, int R>
+template <typename T, int P, int Q, int R, int site = kFree>
 __device__ __forceinline__ void mm(const T (&A)[P][Q], const T (&B)[Q][R], T (&C)[P][R]) {
 #pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i)
@@ -113,13 +179,13 @@ __device__ __forceinline__ void mm(const T (&A)[P][Q], const T (&B)[Q][R], T (&C
     for (int j = 0; j < R; ++j) {
       T acc = A[i][0] * B[0][j];
 #pragma unroll (rq::Unroll<Q>::value)
-      for (int k = 1; k < Q; ++k) acc = acc + A[i][k] * B[k][j];
+      for (int k = 1; k < Q; ++k) acc = madd<site>(acc, A[i][k], B[k][j]);
       C[i][j] = acc;
     }
 }
 
 // C = Aᵀ B  (A: Q×P, B: Q×R).
-template <typename T, int Q, int P, int R>
+template <typename T, int Q, int P, int R, int site = kFree>
 __device__ __forceinline__ void mtm(const T (&A)[Q][P], const T (&B)[Q][R], T (&C)[P][R]) {
 #pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i)
@@ -127,40 +193,40 @@ __device__ __forceinline__ void mtm(const T (&A)[Q][P], const T (&B)[Q][R], T (&
     for (int j = 0; j < R; ++j) {
       T acc = A[0][i] * B[0][j];
 #pragma unroll (rq::Unroll<Q>::value)
-      for (int k = 1; k < Q; ++k) acc = acc + A[k][i] * B[k][j];
+      for (int k = 1; k < Q; ++k) acc = madd<site>(acc, A[k][i], B[k][j]);
       C[i][j] = acc;
     }
 }
 
 // y = A v  (A: P×Q).
-template <typename T, int P, int Q>
+template <typename T, int P, int Q, int site = kFree>
 __device__ __forceinline__ void mv(const T (&A)[P][Q], const T (&v)[Q], T (&y)[P]) {
 #pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i) {
     T acc = A[i][0] * v[0];
 #pragma unroll (rq::Unroll<Q>::value)
-    for (int k = 1; k < Q; ++k) acc = acc + A[i][k] * v[k];
+    for (int k = 1; k < Q; ++k) acc = madd<site>(acc, A[i][k], v[k]);
     y[i] = acc;
   }
 }
 
 // y = Aᵀ v  (A: Q×P).
-template <typename T, int Q, int P>
+template <typename T, int Q, int P, int site = kFree>
 __device__ __forceinline__ void mtv(const T (&A)[Q][P], const T (&v)[Q], T (&y)[P]) {
 #pragma unroll (rq::Unroll<P>::value)
   for (int i = 0; i < P; ++i) {
     T acc = A[0][i] * v[0];
 #pragma unroll (rq::Unroll<Q>::value)
-    for (int k = 1; k < Q; ++k) acc = acc + A[k][i] * v[k];
+    for (int k = 1; k < Q; ++k) acc = madd<site>(acc, A[k][i], v[k]);
     y[i] = acc;
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, int site = kFree>
 __device__ __forceinline__ T dot(const T (&a)[N], const T (&b)[N]) {
   T acc = a[0] * b[0];
 #pragma unroll (rq::Unroll<N>::value)
-  for (int k = 1; k < N; ++k) acc = acc + a[k] * b[k];
+  for (int k = 1; k < N; ++k) acc = madd<site>(acc, a[k], b[k]);
   return acc;
 }
 

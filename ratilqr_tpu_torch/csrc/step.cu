@@ -9,13 +9,33 @@
 //
 // Two designs, one per size of model (launch() picks by Model::N):
 //
-// One solve per thread (n ≤ kUnrollMax: the unicycle, LQR, the cartpole;
-// step_kernel).  The forward phase rolls x forward in registers and writes
-// the T+1 states to the output buffer x (lane-minor, (T+1, n, B)); the
-// backward phase walks it back, recomputes A, B and the cost derivatives
-// from (x_t, l_t) with the device tile model (tile_model.cuh) and runs
-// dp_step (dp_step.cuh).  Nothing but x, L, dl and the per-lane scalars
-// touches device memory.
+// One solve per team of K lanes of a warp (n ≤ kUnrollMax: the unicycle,
+// LQR, the cartpole; step_kernel, on small_team.cuh's dp_step), K = 4 or
+// 1.  The forward phase rolls x forward in registers and writes the T+1
+// states to the output buffer x (lane-minor, (T+1, n, B)); the backward
+// phase walks it back, recomputes A, B and the cost derivatives from
+// (x_t, l_t) with the device tile model (tile_model.cuh) and runs the
+// optimizing DP step.  Every lane of a team rolls out and calls the model
+// (cheaper than broadcasting ~40 words a step); lane r writes entries r,
+// r + K, ... of x_{t+1}, takes the solves with M's factor for columns r,
+// r + K, ... of M⁻¹[S | s⃗] and with H's factor for columns r, r + K, ...
+// of −H⁻¹[G | g] (L and, as column n, dl, which it stores), and the rows
+// r, r + K, ... of DS, AᵀDS·A and the carry's update; the rows go round by
+// __shfl_sync(width = K).  Nothing but x, L, dl and the per-lane scalars
+// touches device memory.  The launch picks K from B and the card's SM
+// count by the rule kernel C shares (small_launch.cuh): 4 up to B = 16,896
+// on 132 SMs, 1 above.  A block is 128 threads where K > 1 and 64 at
+// K = 1, one solve per K of them, on consecutive lanes b, and takes no
+// shared memory.  At every K the forward phase loads l_{t+1} during step
+// t, and the backward phase computes the model blocks of step t − 1 (jac
+// and quad, which do not depend on the carry) in the same iteration as
+// the DP step of step t, so their loads and sin/cos fill the DP's chain;
+// computed so at every K, the model runs in the same code and every K
+// gives the same bits (with the blocks in step order at K = 1 the bits
+// differed, by up to 9.3e-3 on a cartpole value in f32).  M, H and their
+// factors follow the contraction policy at kFactor (smallmat.cuh).  A
+// team past the end of the bank reads lane B − 1, keeps every shuffle and
+// stores nothing.
 //
 // One solve per team (n > kUnrollMax: the quadrotor; step_team_kernel).
 // Same phases and arithmetic, spread over a team of 16 lanes (two teams a
@@ -42,16 +62,38 @@
 // team past the end of the bank reads lane B − 1, keeps every barrier and
 // stores nothing.
 //
-// Bound on the H100: per step and lane the kernel reads l (m words) twice
-// and x (n) once, and writes x (n), L (m·n) and dl (m): 2+2+3+3+6+2 = 18
-// words for the unicycle (72 bytes), against ~730 scalar operations of DP
-// algebra plus the model's sin/cos.  At B = 262,144 and T = 100 that is
-// ~1.9 GB (0.56 ms at 3.35 TB/s) against ~1.9e10 operations (~0.6 ms at
-// 33.5e12 FP32 instructions/s, more with divisions, sqrt and sin/cos
-// expanding to several instructions): the kernel sits near the balance
-// point and leans to the FP32 ALUs.  The simple design keeps every
-// intermediate in registers and leaves x to the L2 cache between the two
-// phases (x of a 128-lane block is 154 KB at T = 100 in f32).
+// Bound on the H100 (kernel_check.bound_ms: the function's bytes, each
+// input read once and each output written once, over 3.35 TB/s, against
+// the DP's arithmetic, 652 operations a step and lane on the unicycle and
+// 953 on the cartpole, over 67 TFLOP/s), f32: the unicycle at T = 100 and
+// B = 262,144 moves 1.37 GB, 0.410 ms (bytes); at B = 16,384 0.026 ms; at
+// T = 30 and B = 942 0.00045 ms, at RAT iLQR's T = 100, B = 10 0.00002 ms;
+// the cartpole at T = 50 and B = 16,384 0.012 ms and at 262,144 0.186 ms
+// (operations).  Below ~1,000 lanes no rate binds: one solve's dependent
+// chain of 2T steps does.
+//
+// What held the per-thread design back, and what this one does about it
+// (launch alone, f32, H100 80GB HBM3 at 700 W, the two in one call by
+// python -m ratilqr_tpu_torch.team_sweep step --baseline; PERF.md §6):
+//   - narrow banks (RAT iLQR's 10 lanes, RAT iLQR++'s and the fleets' 1
+//     to 942): one warp paid each step's chain in turn — the forward
+//     model.f, then per backward step jac, quad and the DP with its
+//     factor, divisions, square roots and logs.  Four lanes a solve give
+//     four times the warps, split the chain's longest parts (the solves
+//     with M's and H's factors) and take the model blocks a step ahead:
+//     T = 100, B = 10 0.445 against 0.79 ms; T = 30, B = 942 0.16-0.17
+//     against 0.26-0.28 ms;
+//   - B = 16,384: one warp a scheduler, latency-bound: the cartpole at
+//     T = 50 0.41-0.46 against 0.52-0.54 ms (35x its bound);
+//   - B = 262,144: issue-bound, and K = 1 is the per-thread algorithm with
+//     the blocks a step ahead: a tie (unicycle T = 100 3.85-4.04 against
+//     3.87-3.96 ms, cartpole T = 50 2.56-2.60 against 2.54-2.61 ms); its
+//     registers (96 unicycle, 127 cartpole) leave the occupancy where it
+//     was, at 64 threads a block or 128.
+// Staging x, l and the noise model by cp.async in a ring of shared
+// buffers, as kernel C does, lost 4-8% at K = 4 (B streams n + m words a
+// lane and step, which the blocks ahead already hide; the ring costs a
+// block barrier a step), so no step is staged.
 //
 // At n=12, m=4 (the quadrotor) a step moves 4 + 12 + 48 + 4 + 4 words per
 // lane but runs ~22,600 operations of DP algebra: at B = 16,384 and T = 50
@@ -59,21 +101,21 @@
 // the FP32 rate.  One solve per thread kept its 12x12 working set in a
 // 10.0 KB stack frame, 164 MB of local memory at that width (more than the
 // 50 MB L2), with 4 warps an SM: hence the team design above.
-//
-// At n=4, m=1 (the cartpole) a step moves 1 + 4 + 4 + 1 + 1 words per lane
-// against ~950 operations of DP algebra: at B = 16,384 and T = 50 that is
-// 0.034 GB (0.010 ms) against 7.8e8 operations (0.012 ms), bound by the
-// FP32 rate; the 4x4 algebra unrolls in full and stays in registers.
 #include <cstdint>
 
-#include "dp_step.cuh"
 #include "dtype.cuh"
+#include "small_launch.cuh"
+#include "small_team.cuh"
 #include "team_mat.cuh"
 #include "team_stage.cuh"
 #include "tile_model.cuh"
 
 namespace {
 
+using rq::small::sm_count;
+using rq::small::small_lanes;
+using rq::small::small_threads;
+using rq::small::with_lanes;
 using rq::team::kTeamLanes;
 using rq::team::kTeams;
 
@@ -85,13 +127,32 @@ struct StepArgs {
   bool *m_fail, *h_fail;
 };
 
-template <typename T, template <typename> class Model>
-__global__ void __launch_bounds__(128) step_kernel(const StepArgs a) {
+// ---- One solve per team of K lanes (N ≤ rq::kUnrollMax) ----
+
+// One step's model blocks: the cost's q, q⃗, Q, r, R, P and the dynamics'
+// A and B at (x_t, l_t).
+template <typename T, int N, int M>
+struct Blocks {
+  T q, qv[N], Q[N][N], r[M], R[M][M], P[M][N], A[N][N], Bm[N][M];
+};
+
+// The fused step, one solve per team of K lanes of a warp (K = 1: one per
+// thread), on rq::small::dp_step.  Every lane rolls x out and calls the
+// device model in registers; the lanes split the solves and products of
+// the DP step.  The forward phase loads l_{t+1} during step t, and the
+// backward phase is software-pipelined: the model blocks of step t − 1,
+// which do not depend on the carry, are computed in the same iteration as
+// the DP step of step t, so their loads and model calls fill the DP's
+// dependent chain (at every K, so every K runs the model in the same code
+// and gives the same bits).  Every team, live or not, keeps every shuffle.
+template <typename T, template <typename> class Model, int K>
+__global__ void __launch_bounds__(small_threads(K)) step_kernel(const StepArgs a) {
   using Mod = Model<T>;
-  constexpr int N = Mod::N, M = Mod::M;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int64_t B = a.B;
+  constexpr int N = Mod::N, M = Mod::M, Solves = small_threads(K) / K;
+  constexpr int Rows = rq::small::kSlots<N, K>, Cols = rq::small::kSlots<N + 1, K>;
+  const int lane = threadIdx.x % K, k = threadIdx.x / K;
+  const bool live = blockIdx.x * Solves + k < a.B;   // a team past the bank stores nothing
+  const int64_t B = a.B, b = live ? blockIdx.x * Solves + k : a.B - 1;
   const Mod model(a.p);
   const T* l = static_cast<const T*>(a.l);
   const T* Ws = static_cast<const T*>(a.W);
@@ -101,23 +162,35 @@ __global__ void __launch_bounds__(128) step_kernel(const StepArgs a) {
   T* Lo = static_cast<T*>(a.L);
   T* dlo = static_cast<T*>(a.dl);
 
+  // l_t from device memory.
+  const auto control = [&](int t, T (&u)[M]) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) u[j] = l[(int64_t(t) * M + j) * B + b];
+  };
+  // Lane r stores entries r, r + K, ... of x_t.
+  const auto store_x = [&](int t, const T (&x)[N]) {
+#pragma unroll
+    for (int r = 0; r < Rows; ++r) {
+      const int i = lane + K * r;
+      if (i < N && live) xs[(int64_t(t) * N + i) * B + b] = rq::small::pick<T, N>(x, i);
+    }
+  };
+
   // Forward: open-loop rollout u_t = l_t from x0.
   T x[N], u[M];
-#pragma unroll (rq::Unroll<N>::value)
-  for (int i = 0; i < N; ++i) {
-    x[i] = static_cast<const T*>(a.x0)[i * B + b];
-    xs[i * B + b] = x[i];
-  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = static_cast<const T*>(a.x0)[i * B + b];
+  store_x(0, x);
+  if (a.T > 0) control(0, u);
   for (int t = 0; t < a.T; ++t) {
-#pragma unroll (rq::Unroll<M>::value)
-    for (int j = 0; j < M; ++j) u[j] = l[(t * M + j) * B + b];
-    T xn[N];
+    T un[M], xn[N];
+    control(t + 1 < a.T ? t + 1 : t, un);
     model.f(x, u, xn);
-#pragma unroll (rq::Unroll<N>::value)
-    for (int i = 0; i < N; ++i) {
-      x[i] = xn[i];
-      xs[((t + 1) * N + i) * B + b] = x[i];
-    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = xn[i];
+    store_x(t + 1, x);
+#pragma unroll
+    for (int j = 0; j < M; ++j) u[j] = un[j];
   }
 
   // Backward: optimizing DP with the model blocks recomputed per step.
@@ -126,35 +199,54 @@ __global__ void __launch_bounds__(128) step_kernel(const StepArgs a) {
   const T theta = static_cast<const T*>(a.theta)[b];
   const T mu = static_cast<const T*>(a.mu)[b];
   bool m_fail = false, h_fail = false;
+  // Step t's model blocks, from (x_t, l_t) in device memory.
+  const auto blocks = [&](int t, Blocks<T, N, M>& m) {
+    T xt[N], ut[M];
+#pragma unroll
+    for (int i = 0; i < N; ++i) xt[i] = xs[(int64_t(t) * N + i) * B + b];
+    control(t, ut);
+    model.jac(xt, ut, m.A, m.Bm);
+    model.quad(t, xt, ut, m.q, m.qv, m.Q, m.r, m.R, m.P);
+  };
+  // Lane r stores its columns of [L_t | dl_t].
+  const auto store_gains = [&](int t, const T (&LX)[Cols][M]) {
+#pragma unroll
+    for (int c0 = 0; c0 < Cols; ++c0) {
+      const int c = lane + K * c0;
+      if (!live || c > N) continue;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (c < N)
+          Lo[((int64_t(t) * M + i) * N + c) * B + b] = LX[c0][i];
+        else
+          dlo[(int64_t(t) * M + i) * B + b] = LX[c0][i];
+      }
+    }
+  };
+  __syncwarp();   // the team's x stores
+  Blocks<T, N, M> f;
+  if (a.T > 0) blocks(a.T - 1, f);
   for (int t = a.T - 1; t >= 0; --t) {
-#pragma unroll (rq::Unroll<N>::value)
-    for (int i = 0; i < N; ++i) x[i] = xs[(t * N + i) * B + b];
-#pragma unroll (rq::Unroll<M>::value)
-    for (int j = 0; j < M; ++j) u[j] = l[(t * M + j) * B + b];
-    T q, qv[N], Q[N][N], r[M], R[M][M], P[M][N], A[N][N], Bm[N][M];
-    model.jac(x, u, A, Bm);
-    model.quad(t, x, u, q, qv, Q, r, R, P);
-    T W[N][N], Wi[N][N];
-#pragma unroll (rq::Unroll<N>::value)
+    Blocks<T, N, M> next;
+    blocks(t > 0 ? t - 1 : 0, next);   // step 0's twice, so the body has no branch
+    T W[N][N], Wi[N][N], LX[Cols][M];
+#pragma unroll
     for (int i = 0; i < N; ++i)
-#pragma unroll (rq::Unroll<N>::value)
+#pragma unroll
       for (int j = 0; j < N; ++j) {
         W[i][j] = Ws[(t * N + i) * N + j];
         Wi[i][j] = Wis[(t * N + i) * N + j];
       }
-    T L[M][N], dl[M], g[M], G[M][N], H[M][M];
-    rq::dp_step<T, N, M, true>(q, qv, Q, r, R, P, A, Bm, W, Wi, ldWs[t], theta, mu, L, dl, g,
-                               G, H, s, sv, S, m_fail, h_fail);
-#pragma unroll (rq::Unroll<M>::value)
-    for (int i = 0; i < M; ++i) {
-      dlo[(t * M + i) * B + b] = dl[i];
-#pragma unroll (rq::Unroll<N>::value)
-      for (int j = 0; j < N; ++j) Lo[((int64_t(t) * M + i) * N + j) * B + b] = L[i][j];
-    }
+    rq::small::dp_step<T, N, M, K>(lane, f.q, f.qv, f.Q, f.r, f.R, f.P, f.A, f.Bm, W, Wi,
+                                   ldWs[t], theta, mu, LX, s, sv, S, m_fail, h_fail);
+    store_gains(t, LX);
+    f = next;
   }
-  static_cast<T*>(a.value)[b] = s;
-  a.m_fail[b] = m_fail;
-  a.h_fail[b] = h_fail;
+  if (live && lane == 0) {
+    static_cast<T*>(a.value)[b] = s;
+    a.m_fail[b] = m_fail;
+    a.h_fail[b] = h_fail;
+  }
 }
 
 // ---- One solve per team (N > rq::kUnrollMax: the quadrotor) ----
@@ -260,15 +352,22 @@ __global__ void __launch_bounds__(
   }
 }
 
-// Dynamic shared memory of one team-kernel block (0: one solve per thread).
+// Dynamic shared memory of one team-kernel block (the quadrotor).
 template <typename T, template <typename> class Model>
 constexpr int team_smem_bytes() {
   using Mod = Model<T>;
-  return Mod::N > rq::kUnrollMax ? int(sizeof(StepBlock<T, Mod::N, Mod::M, kTeams>)) : 0;
+  return int(sizeof(StepBlock<T, Mod::N, Mod::M, kTeams>));
 }
 
-// One solve per thread for the small models, whose working set fits in
-// registers; one solve per team of kTeamLanes lanes above kUnrollMax.
+template <typename T, template <typename> class Model, int K>
+int launch_small(const StepArgs& a, cudaStream_t stream) {
+  constexpr int solves = small_threads(K) / K;
+  step_kernel<T, Model, K><<<(a.B + solves - 1) / solves, small_threads(K), 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// One solve per team of kTeamLanes lanes above kUnrollMax; one per team of
+// small_lanes(B, SMs) lanes at n ≤ kUnrollMax.
 template <typename T, template <typename> class Model>
 int launch(const StepArgs& a, cudaStream_t stream) {
   if constexpr (Model<T>::N > rq::kUnrollMax) {
@@ -278,11 +377,27 @@ int launch(const StepArgs& a, cudaStream_t stream) {
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     kernel<<<(a.B + kTeams - 1) / kTeams, kTeamLanes * kTeams, bytes, stream>>>(a);
+    return cudaGetLastError();
   } else {
-    const int threads = 128;
-    step_kernel<T, Model><<<(a.B + threads - 1) / threads, threads, 0, stream>>>(a);
+    return with_lanes(small_lanes(a.B, sm_count()),
+                      [&](auto K) { return launch_small<T, Model, decltype(K)::value>(a, stream); });
   }
-  return cudaGetLastError();
+}
+
+// The launch on `model` at width B: returns its dynamic shared memory a
+// block and sets its solves a block and lanes a solve.
+template <typename T, template <typename> class Model>
+int launch_shape(int B, int* solves, int* lanes) {
+  if constexpr (Model<T>::N > rq::kUnrollMax) {
+    *solves = kTeams;
+    *lanes = kTeamLanes;
+    return team_smem_bytes<T, Model>();
+  } else {
+    const int K = small_lanes(B, sm_count());
+    *solves = small_threads(K) / K;
+    *lanes = K;
+    return 0;
+  }
 }
 
 template <typename T>
@@ -312,15 +427,16 @@ extern "C" int RQ_ENTRY(ratilqr_step)(int model, int B, int T, const double* par
   return dispatch<Real>(model, a, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a block of kernel B takes on `model` (0 for one
-// solve per thread, -1 for an unsupported model); its teams per block and
-// lanes per team.
-extern "C" int RQ_ENTRY(ratilqr_step_smem)(int model, int* teams_per_block, int* lanes_per_team) {
-  *teams_per_block = kTeams;
-  *lanes_per_team = kTeamLanes;
-  if (model == rq::kUnicycle) return team_smem_bytes<Real, rq::Unicycle>();
-  if (model == rq::kLqr) return team_smem_bytes<Real, rq::Lqr>();
-  if (model == rq::kQuadrotor) return team_smem_bytes<Real, rq::Quadrotor>();
-  if (model == rq::kCartpole) return team_smem_bytes<Real, rq::Cartpole>();
+// The launch of kernel B on `model` for a bank of B lanes on the current
+// device: returns the dynamic shared memory a block takes (-1 for an
+// unsupported model) and sets the solves a block and the lanes a solve.
+extern "C" int RQ_ENTRY(ratilqr_step_smem)(int model, int B, int* solves_per_block,
+                                           int* lanes_per_solve) {
+  int* const sb = solves_per_block;
+  int* const ls = lanes_per_solve;
+  if (model == rq::kUnicycle) return launch_shape<Real, rq::Unicycle>(B, sb, ls);
+  if (model == rq::kLqr) return launch_shape<Real, rq::Lqr>(B, sb, ls);
+  if (model == rq::kQuadrotor) return launch_shape<Real, rq::Quadrotor>(B, sb, ls);
+  if (model == rq::kCartpole) return launch_shape<Real, rq::Cartpole>(B, sb, ls);
   return -1;
 }

@@ -102,8 +102,8 @@ __device__ __forceinline__ void sym_inplace(int lane, T (&M)[N][N]) {
 // row i of M (entries j ≤ i) in c and leaves row i of the factor there;
 // at step j the pivot and column j go round by shuffles.  Entry (i, j)
 // takes its updates L_ik L_jk in ascending k and then its division by the
-// pivot, the operations of smallmat.cuh:chol in its order (NaN entries
-// when M is not positive definite).  Returns whether every pivot is
+// pivot, the operations of smallmat.cuh:chol in its order, under its
+// contraction policy (NaN entries when M is not positive definite).  Returns whether every pivot is
 // finite and positive (smallmat.cuh:chol_ok), and the lane's own pivot in
 // `diag` (lanes i < N).
 template <typename T, int N, int L>
@@ -119,7 +119,7 @@ __device__ __forceinline__ bool chol_rows(int lane, T (&c)[N], T& diag) {
 #pragma unroll
     for (int k = j + 1; k < N; ++k) {
       const T ckj = __shfl_sync(kFull, c[j], k, L);   // L_kj, from lane k
-      if (lane >= k) c[k] = c[k] - c[j] * ckj;
+      if (lane >= k) c[k] = msub<kFactor>(c[k], c[j], ckj);
     }
   }
   return ok;
@@ -198,8 +198,8 @@ __device__ __forceinline__ bool m_factor(int lane, T theta, const T (&Wi)[N][N],
   T c[N], diag = T(1);
 #pragma unroll
   for (int j = 0; j < N; ++j) {   // row i of sym(W⁻¹ − θS), j ≤ i
-    const T mij = Wi[i][j] - theta * S[i][j];
-    c[j] = j < i ? T(0.5) * (mij + (Wi[j][i] - theta * S[j][i])) : mij;
+    const T mij = msub<kFactor>(Wi[i][j], theta, S[i][j]);
+    c[j] = j < i ? T(0.5) * (mij + msub<kFactor>(Wi[j][i], theta, S[j][i])) : mij;
   }
   const bool ok = chol_rows<T, N, L>(lane, c, diag);
   if (lane < N) {

@@ -53,11 +53,13 @@ from ratilqr_tpu_torch.problems import RiskSensitiveProblem
 
 THETA_MIX = (0.0, 0.01, 0.05, 1e6, 0.02)   # the 1e6 lanes must fail M
 MU_MIX = (0.0, 0.0, 1e-3, 0.0, 1e-2)
-# The n=12 h_fail fixture: the quadrotor with THETA_MIX and this μ mix, so
-# every other θ = 0 lane carries μ = −1e6.  There H = R + BᵀDSB + μI fails
-# at the first backward step while M = W⁻¹ does not: those lanes must
-# latch h_fail and not m_fail, and the θ = 1e6 lanes m_fail.
-H_FAIL = "quadrotor_h_fail"
+# The h_fail fixtures: a model with THETA_MIX and this μ mix, so every
+# other θ = 0 lane carries μ = −1e6.  There H = R + BᵀDSB + μI fails at the
+# first backward step while M = W⁻¹ does not: those lanes must latch h_fail
+# and not m_fail, and the θ = 1e6 lanes m_fail.  H_FAIL is the n=12 one
+# (the quadrotor); h_fail_fixture(model) names any model's.
+H_FAIL_SUFFIX = "_h_fail"
+H_FAIL = "quadrotor" + H_FAIL_SUFFIX
 H_FAIL_MU = -1e6
 H_FAIL_MU_MIX = (H_FAIL_MU, 0.0, 1e-3, 0.0, 1e-2, 0.0, 0.0, 1e-3, 0.0, 1e-2)
 
@@ -109,6 +111,16 @@ def random_linear(n: int, m: int, T: int, dtype, device, noise: float = 1e-3,
         h=lambda x: 0.5 * (x @ (a["qf"] * x)), W=lambda k: W, N=T)
 
 
+def h_fail_fixture(model: str) -> str:
+    """The name of ``model``'s h_fail fixture (:data:`H_FAIL` for the
+    quadrotor)."""
+    return model + H_FAIL_SUFFIX
+
+
+def _is_h_fail(model: str) -> bool:
+    return model.endswith(H_FAIL_SUFFIX)
+
+
 def linear_dims(model: str):
     """``(n, m)`` of a ``linear<n>x<m>`` model name, else None."""
     if not model.startswith("linear"):
@@ -127,8 +139,9 @@ def model_dims(model: str, T: int = 1):
 
 
 def make_problem(model: str, T: int, dtype, device) -> RiskSensitiveProblem:
-    """``unicycle``, ``lqr``, ``cartpole``, ``quadrotor`` (also as
-    :data:`H_FAIL`, whose lanes differ only in μ), or
+    """``unicycle``, ``lqr``, ``cartpole``, ``quadrotor`` (each also as
+    its h_fail fixture, :func:`h_fail_fixture`, whose lanes differ only
+    in μ), or
     ``negative_curvature`` — the restart- and h_fail-forcing fixture of
     tests/test_step_fused.py (control cost −0.05·u·u, terminal cost
     0.005·x·x), all with device models; or ``linear<n>x<m>``, the
@@ -137,11 +150,13 @@ def make_problem(model: str, T: int, dtype, device) -> RiskSensitiveProblem:
     dims = linear_dims(model)
     if dims is not None:
         return random_linear(*dims, T, dtype, device)
+    if _is_h_fail(model):
+        model = model[:-len(H_FAIL_SUFFIX)]
     if model == "unicycle":
         return unicycle(N=T, dtype=dtype, device=device)
     if model == "cartpole":
         return cartpole(N=T, dtype=dtype, device=device)
-    if model in ("quadrotor", H_FAIL):
+    if model == "quadrotor":
         return quadrotor(N=T, dtype=dtype, device=device)
     if model == "lqr":
         return lqr_problem(N=T, noise=0.5, dtype=dtype, device=device)
@@ -179,7 +194,7 @@ def bank_inputs(model: str, T: int, B: int, dtype, device, seed: int = 0):
         mu = torch.zeros(B, dtype=dtype, device=device)
     else:
         theta = lane_mix(THETA_MIX, B, dtype, device)
-        mu = lane_mix(H_FAIL_MU_MIX if model == H_FAIL else MU_MIX, B, dtype,
+        mu = lane_mix(H_FAIL_MU_MIX if _is_h_fail(model) else MU_MIX, B, dtype,
                       device)
     return prob, x0, l, L, theta, mu, noise_model(prob, T, dtype, device)
 
@@ -331,11 +346,11 @@ def _slim(full, optimizing: bool):
 
 def _check_latching(model: str, want, theta, mu, h_fail: bool) -> None:
     """Every θ = 1e6 lane latched m_fail; with ``h_fail``, on
-    :data:`H_FAIL` every μ = −1e6 lane latched h_fail and not m_fail."""
+    an h_fail fixture every μ = −1e6 lane latched h_fail and not m_fail."""
     if not bool(want.m_fail[theta == 1e6].all()):
         raise AssertionError("a θ = 1e6 lane did not latch m_fail")
     forced = mu == H_FAIL_MU
-    if h_fail and model == H_FAIL and not (
+    if h_fail and _is_h_fail(model) and not (
             bool(want.h_fail[forced].all())
             and not bool(want.m_fail[forced].any())):
         raise AssertionError("a μ = −1e6 lane did not latch h_fail alone")
@@ -353,7 +368,7 @@ def check_riccati(model: str, T: int, B: int, dtype, device,
                   ) -> Tuple[float, float]:
     """Kernel A (``kernel``, of :func:`riccati_bank`'s signature) against
     :func:`riccati_bank_plain` in one variant; every θ = 1e6 lane must
-    latch m_fail, and on :data:`H_FAIL` the optimizing pass every
+    latch m_fail, and on an h_fail fixture the optimizing pass every
     μ = −1e6 lane h_fail and not m_fail."""
     ap, _, _, theta, mu = _riccati_fixture(model, T, B, dtype, device,
                                            shared_w)
@@ -409,14 +424,21 @@ def _problem64(model, T, device):
     return prob, noise_model(prob, T, torch.float64, device)
 
 
+def step_inputs(model: str, T: int, B: int, dtype, device):
+    """Seeded ``(problem, x0, l, theta, mu, noise)`` of kernel B's checks:
+    :func:`step_optimize_bank`'s arguments."""
+    prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, B, dtype,
+                                                   device, seed=1)
+    return prob, x0, l, theta, mu, noise
+
+
 def check_step(model: str, T: int, B: int, dtype, device,
                kernel: Callable = step_optimize_bank) -> Tuple[float, float]:
     """Kernel B (``kernel``, of :func:`step_optimize_bank`'s signature)
     against :func:`step_optimize_bank_plain`; every θ = 1e6 lane must latch
-    m_fail, and on :data:`H_FAIL` every μ = −1e6 lane h_fail and not
-    m_fail."""
-    prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, B, dtype,
-                                                   device, seed=1)
+    m_fail, and on an h_fail fixture (:func:`h_fail_fixture`) every
+    μ = −1e6 lane h_fail and not m_fail."""
+    prob, x0, l, theta, mu, noise = step_inputs(model, T, B, dtype, device)
     got = kernel(prob, x0, l, theta, mu, noise)
     want = step_optimize_bank_plain(prob, x0, l, theta, mu, noise)
     ref = None
@@ -596,9 +618,8 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
                 lambda: riccati_bank_plain(ap, th, mu, slim=True))
 
     def step():
-        prob, x0, l, _, theta, mu, noise = bank_inputs(model, T, base,
-                                                       dtype, device, seed=1)
-        args = (prob, *(_wide(x, B) for x in (x0, l, theta, mu)), noise)
+        prob, *lanes, noise = step_inputs(model, T, base, dtype, device)
+        args = (prob, *(_wide(x, B) for x in lanes), noise)
         return (lambda: step_optimize_bank(*args), lambda: step_layout(*args),
                 lambda a: launch_step(*a),
                 lambda: step_optimize_bank_plain(*args))

@@ -32,6 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -210,7 +211,7 @@ _SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
     "ratilqr_riccati": [_I] * 8 + [_P] * 18 + [_P] * 11 + [_P],
     "ratilqr_riccati_smem": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_step": [_I] * 3 + [_PARAMS] + [_P] * 7 + [_P] * 6 + [_P],
-    "ratilqr_step_smem": [_I] + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ratilqr_step_smem": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
     "ratilqr_candidate_smem": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_riccati_folded": [_I] * 4 + [_P] * 11 + [_P] * 2 + [_P],
@@ -284,17 +285,37 @@ def check(rc: int, kernel: str, detail: str = "") -> None:
 def block_shared_memory(kernel: str, model_id: int, dtype, *args):
     """``(bytes, teams, lanes)`` of kernel ``kernel`` (``"step"`` or
     ``"candidate"``) on a device model: the dynamic shared memory a block
-    takes (kernel B: 0 where it runs one solve per thread; one solve per
-    team of ``lanes`` threads above ``kUnrollMax``, the quadrotor), its
-    teams per block and lanes per team.  ``args`` go before the two
-    outputs (kernel C: the bank's width B, from which its launch picks the
-    lanes a solve at n ≤ ``kUnrollMax``).  Builds the library if needed."""
+    takes, its teams (solves) per block and lanes per team.  ``args`` go
+    before the two outputs: the bank's width B, from which the launch
+    picks the lanes a solve at n ≤ ``kUnrollMax`` (4 or 1; 16 on the
+    quadrotor).  Builds the library if needed."""
     teams, lanes = ctypes.c_int(), ctypes.c_int()
     nbytes = entry(f"{kernel}_smem", dtype)(model_id, *args,
                                             ctypes.byref(teams),
                                             ctypes.byref(lanes))
     check(nbytes if nbytes < 0 else 0, kernel)
     return nbytes, teams.value, lanes.value
+
+
+def first_widths(kernel: str, model_id: int, dtype, B_max: int = 1 << 30
+                 ) -> Dict[int, int]:
+    """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
+    it}`` of kernel ``kernel`` (``"step"`` or ``"candidate"``) on a device
+    model on the current card, read from :func:`block_shared_memory` (the
+    launch takes fewer lanes a solve as the bank widens)."""
+    def lanes(B):
+        return block_shared_memory(kernel, model_id, dtype, B)[2]
+
+    widths, B = {}, 1
+    while B <= B_max:
+        K = lanes(B)
+        widths[K] = B
+        lo, hi = B, B_max + 1   # lanes(lo) == K; hi: the first to take fewer
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if lanes(mid) < K else (mid, hi)
+        B = hi
+    return widths
 
 
 def ptr(t) -> int | None:

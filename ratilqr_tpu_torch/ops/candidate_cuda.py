@@ -108,22 +108,9 @@ def block_shared_memory(model_id: int, dtype, B: int
 def first_widths(model_id: int, dtype, B_max: int = 1 << 30
                  ) -> Dict[int, int]:
     """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
-    it}`` of kernel C on a device model on the current card, read from
-    :func:`block_shared_memory` (the launch takes fewer lanes a solve as
-    the bank widens)."""
-    def lanes(B):
-        return block_shared_memory(model_id, dtype, B)[2]
-
-    widths, B = {}, 1
-    while B <= B_max:
-        K = lanes(B)
-        widths[K] = B
-        lo, hi = B, B_max + 1   # lanes(lo) == K; hi: the first to take fewer
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            lo, hi = (lo, mid) if lanes(mid) < K else (mid, hi)
-        B = hi
-    return widths
+    it}`` of kernel C on a device model on the current card
+    (:func:`~ratilqr_tpu_torch.ops._build.first_widths`)."""
+    return _build.first_widths(KERNEL, model_id, dtype, B_max)
 
 
 def launch_candidate(tm, ins, entry=None) -> CandidateOut:

@@ -2,8 +2,10 @@
 DP) on CUDA.
 
 Counterpart of :mod:`ratilqr_tpu.ops.step_pallas`.  The kernel runs one
-solve per thread on the small models and one solve per team of 16 lanes on
-the quadrotor (``csrc/step.cu``); the wrapper is the same for both.
+solve per team of 4 or 1 lanes on the small models (the launch picks from
+the bank's width and the SM count, by the rule kernel C shares) and one
+solve per team of 16 lanes on the quadrotor (``csrc/step.cu``); the
+wrapper is the same for both.
 :func:`step_optimize_bank` launches ``csrc/step.cu`` for a bank on a CUDA
 device and runs
 :func:`step_optimize_bank_plain` — open-loop rollout with Jacobians,
@@ -16,7 +18,7 @@ with no tile model runs that composition with the Riccati dispatch
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -94,10 +96,23 @@ def step_layout(problem, x0: Tensor, l: Tensor, theta: Tensor, mu: Tensor,
     return tm, ins
 
 
-def block_shared_memory(model_id: int, dtype) -> Tuple[int, int, int]:
-    """``(bytes, teams, lanes)`` of kernel B on a device model
+def block_shared_memory(model_id: int, dtype, B: int
+                        ) -> Tuple[int, int, int]:
+    """``(bytes, solves, lanes)`` of kernel B's launch on a device model for
+    a bank of ``B`` lanes on the current card: the dynamic shared memory a
+    block takes, its solves a block and lanes a solve (n ≤ 4: 4 or 1,
+    picked from B and the SM count by the rule kernel C shares; the
+    quadrotor: 16)
     (:func:`~ratilqr_tpu_torch.ops._build.block_shared_memory`)."""
-    return _build.block_shared_memory(KERNEL, model_id, dtype)
+    return _build.block_shared_memory(KERNEL, model_id, dtype, B)
+
+
+def first_widths(model_id: int, dtype, B_max: int = 1 << 30
+                 ) -> Dict[int, int]:
+    """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
+    it}`` of kernel B on a device model on the current card
+    (:func:`~ratilqr_tpu_torch.ops._build.first_widths`)."""
+    return _build.first_widths(KERNEL, model_id, dtype, B_max)
 
 
 def launch_step(tm, ins, entry=None) -> StepOut:

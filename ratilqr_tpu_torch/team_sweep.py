@@ -17,34 +17,44 @@ in reverse, and checks that each gives the shipped kernel's outputs
 (kernels C and D: value; kernel B: x, value, L, dl; kernel A: value, L,
 dl) and fail flags bit for bit.
 
-Kernel C at n ≤ 4 (``candidate``, float32): each ``SMALL_VARIANTS`` entry
-(lanes a solve K of 1 or 4, threads a block, staging by cp.async on or
-off where K > 1; the fold-ahead pipeline is on wherever K > 1) builds
-with ``-DRQ_SMALL_LANES``, ``-DRQ_SMALL_THREADS`` (and
-``-DRQ_WIDE_THREADS``, the threads at K = 1) and ``-DRQ_SMALL_STAGE``;
-the sweep prints its ptxas report and, where the toolkit has
-``cuobjdump``, the count of each kind of load, store, shuffle and barrier
-in its SASS; it times each at ``SMALL_CELLS`` (the unicycle T=30 at B=1
-and 942, the unicycle T=100 and the cartpole T=50 at B=16,384 and
-262,144) in two passes and checks each
-against the shipped build (whose launch picks K) bit for bit.  Then it
-times the shipped launch at ``WIDTH_CELLS`` (B = 1, 256, 640, 942,
-16,384, 32,768, 65,536 and 262,144 on the unicycle T=30 and T=100 and the
-cartpole T=50) with
-the K it picks.  ``--baseline DIR`` also builds ``DIR/candidate.cu`` (the
-csrc directory of another checkout, e.g. the parent commit's) and times it
-beside the shipped build at every width cell, in turns (baseline, shipped,
-shipped, baseline), with its largest difference from the shipped values
-and whether its fail flags are equal.  Last, at ``FLAG_CASE`` (the
-cartpole fixture on which kernel C's float32 fail flag disagrees with the
-plain version), it lists the lanes whose float32 fail flag differs from
-float64's in the shipped build, a build without fused multiply-adds
-(``-fmad=false``), the baseline and the plain version.
+Kernels C and B at n ≤ 4 (``candidate``, ``step``; float32): each
+``SMALL_VARIANTS`` (C) or ``STEP_VARIANTS`` (B) entry — lanes a solve K of
+1 or 4, threads a block and, for C, staging by cp.async on or off where
+K > 1 — builds with ``-DRQ_SMALL_LANES``, ``-DRQ_SMALL_THREADS`` (and
+``-DRQ_WIDE_THREADS``, the threads at K = 1) and ``-DRQ_SMALL_STAGE``, as
+do the flag check's builds below; the sweep prints each one's ptxas
+report and, where the toolkit has ``cuobjdump``, the count of each kind
+of load, store, shuffle and barrier in its SASS; it times each (the
+variants and the flag check's builds) at ``SMALL_CELLS`` / ``STEP_CELLS`` (the
+unicycle T=30 at B=1 and 942, B's also at RAT iLQR's T=100, B=10, the
+unicycle T=100 and the cartpole T=50 at B=16,384 and 262,144) in two
+passes and checks each against the shipped build (whose launch picks K)
+bit for bit.  Then it times the shipped launch at ``WIDTH_CELLS`` /
+``STEP_WIDTH_CELLS`` (the unicycle T=30 and T=100 and the cartpole T=50,
+each at B = 1, 256, 640, 942, 16,384, 32,768, 65,536 and 262,144 for C,
+and 1, 10, 256, 942, 16,384, 32,768 and 262,144 for B) with the K it
+picks.  ``--baseline DIR`` also builds ``DIR/<kernel>.cu`` (the csrc
+directory of another checkout, e.g. the parent commit's) and times it
+beside the shipped build at every width cell, in turns (baseline,
+shipped, shipped, baseline), with its largest difference from the
+shipped values and whether its fail flags are equal.  Last, at
+``FLAG_CASE`` (the cartpole fixture on which the float32 fail flags
+disagreed with the plain version before the contraction policy of
+``csrc/smallmat.cuh``), it lists the lanes whose float32 fail flags
+differ from float64's in the shipped build, a build without fused
+multiply-adds (``-fmad=false``), a build at each level of the policy
+(``-DRQ_PSD_ROUNDING`` = 0: off, 1: M and the pivots, 2: also the S
+update), the baseline and the plain version.
+
+``policy`` builds every kernel with the contraction policy off and times
+each beside the shipped build at ``POLICY_CELLS`` (``chip_smoke.py``
+phase 9's cells), in turns; ``flags [--baseline DIR]`` runs the flag
+check of kernels C and B alone.
 
 Run on a machine with a CUDA card, from the repository root:
-``python -m ratilqr_tpu_torch.team_sweep
-[candidate [--baseline DIR]|step|riccati|riccati_folded]`` (kernel C
-without an argument).
+``python -m ratilqr_tpu_torch.team_sweep [candidate [--baseline DIR]|
+step [--baseline DIR]|riccati|riccati_folded|policy|flags [--baseline
+DIR]]`` (kernel C without an argument).
 """
 from __future__ import annotations
 
@@ -78,9 +88,11 @@ LAUNCHES = {"candidate": candidate_cuda.launch_candidate,
                 riccati_cuda.launch_riccati(ins, shape, True, entry),
             "riccati_folded": riccati_cuda.launch_folded}
 # Arguments of each kernel's shared-memory query on the quadrotor (kernel
-# A: its slim optimizing pass; A and D: a shared noise model; C: a width).
+# A: its slim optimizing pass; A and D: a shared noise model; B and C: a
+# width).
 SMEM_QUERY = {"riccati": (12, 4, 1, 1), "riccati_folded": (12, 1),
-              "candidate": (tile_model.QUADROTOR, 16_384)}
+              "candidate": (tile_model.QUADROTOR, 16_384),
+              "step": (tile_model.QUADROTOR, 16_384)}
 # Kernel C at n <= 4: (lanes a solve, threads a block, staged where
 # K > 1); the shipped build picks the lanes from the width ((1, 64, 0) and
 # (4, 128, 1) are its kernels).
@@ -93,9 +105,29 @@ WIDTHS_C = (1, 256, 640, 942, 16_384, 32_768, 65_536, 262_144)
 WIDTH_CELLS = tuple((model, T_, B) for model, T_ in (
     ("unicycle", 30), ("unicycle", 100), ("cartpole", 50))
     for B in WIDTHS_C)
-# Kernel C's float32 fail flag disagrees with the plain version's on a
-# near-breakdown lane of this fixture: (model, horizon, width).
+# Kernel B at n <= 4: (lanes a solve, threads a block); the shipped build
+# picks the lanes from the width ((4, 128) and (1, 64) are its kernels;
+# no step is staged, and the model blocks are a step ahead at every K).
+STEP_VARIANTS = ((4, 128), (4, 64), (1, 64), (1, 128), (1, 32))
+STEP_CELLS = (("unicycle", 30, 1), ("unicycle", 100, 10),
+              ("unicycle", 30, 942), ("unicycle", 100, 16_384),
+              ("unicycle", 100, 262_144), ("cartpole", 50, 16_384),
+              ("cartpole", 50, 262_144))
+WIDTHS_B = (1, 10, 256, 942, 16_384, 32_768, 262_144)
+STEP_WIDTH_CELLS = tuple((model, T_, B) for model, T_ in (
+    ("unicycle", 30), ("unicycle", 100), ("cartpole", 50))
+    for B in WIDTHS_B)
+# The float32 fail flags of kernels C and B disagreed with the plain
+# version's on a near-breakdown lane of this fixture before the
+# contraction policy (csrc/smallmat.cuh): (model, horizon, width).
 FLAG_CASE = ("cartpole", 20, 33_793)
+# The contraction policy's levels (-DRQ_PSD_ROUNDING; 2, kCarry, is
+# shipped) and the cells at which "policy" times every kernel with it off
+# and on: chip_smoke.py phase 9's.
+PSD_LEVELS = (0, 1, 2)
+POLICY_CELLS = (("unicycle", 100, 262_144), ("quadrotor", 50, 16_384),
+                ("quadrotor", 50, 262_144), ("cartpole", 50, 16_384),
+                ("unicycle", 30, 1), ("unicycle", 30, 942))
 SASS_OPS = ("LDG", "LDS", "LDGSTS", "LDL", "STG", "STS", "STL", "SHFL",
             "BAR", "MUFU")
 
@@ -110,7 +142,7 @@ def _shared_memory(kernel, lib, suffix):
     (``SMEM_QUERY``)."""
     teams, lanes = ctypes.c_int(), ctypes.c_int()
     query = getattr(lib, f"ratilqr_{kernel}_smem_{suffix}")
-    shape = SMEM_QUERY.get(kernel, (tile_model.QUADROTOR,))
+    shape = SMEM_QUERY[kernel]
     return query(*shape, ctypes.byref(teams), ctypes.byref(lanes))
 
 
@@ -230,99 +262,125 @@ def sass_counts(lib, name: str):
             for f, c in counts.items() if name in names[f]}
 
 
-def _print_small_build(label, lib, rows, secs):
+def _print_small_build(kernel, label, lib, rows, secs):
+    name = f"{kernel}_kernel"   # not {kernel}_team_kernel
     for fn, regs, stores, loads, stack in rows:
-        if "candidate_kernel" in fn:
-            print(f"small sweep {label} {_build.short_name(fn)}: {regs} "
-                  f"registers, {stack} B stack frame, {stores} B spill "
-                  f"stores, {loads} B spill loads ({secs:.1f} s nvcc)",
+        if name in fn:
+            print(f"small sweep {kernel} {label} {_build.short_name(fn)}: "
+                  f"{regs} registers, {stack} B stack frame, {stores} B spill"
+                  f" stores, {loads} B spill loads ({secs:.1f} s nvcc)",
                   flush=True)
-    counts = sass_counts(lib, "candidate_kernel")
+    counts = sass_counts(lib, name)
     if counts is None:
-        print(f"small sweep {label}: no cuobjdump, no SASS counts",
+        print(f"small sweep {kernel} {label}: no cuobjdump, no SASS counts",
               flush=True)
         return
     for fn, c in counts.items():
-        print(f"small sweep {label} SASS {fn}: "
+        print(f"small sweep {kernel} {label} SASS {fn}: "
               + ", ".join(f"{op} {n}" for op, n in c.items()), flush=True)
 
 
 def _diff(out, ref) -> str:
-    ok = ~(out.m_fail | ref.m_fail)
+    """Kernel B's or C's largest value difference from the shipped build's
+    on the lanes that did not fail, and whether the fail flags agree."""
+    failed = [f for f in ("m_fail", "h_fail") if hasattr(out, f)]
+    bad = out.m_fail | ref.m_fail
+    for f in failed[1:]:
+        bad = bad | getattr(out, f) | getattr(ref, f)
+    ok = ~bad
     err = float((out.value[ok].double() - ref.value[ok].double()).abs()
                 .max()) if bool(ok.any()) else 0.0
+    same = all(torch.equal(getattr(out, f), getattr(ref, f)) for f in failed)
     return (f"max |value - shipped| {err:.3e} on lanes that did not fail, "
-            f"fail flags equal: {torch.equal(out.m_fail, ref.m_fail)}")
+            f"fail flags equal: {same}")
 
 
-def small_sweep(device, baseline=None) -> None:
-    """Kernel C at n <= 4: ``SMALL_VARIANTS`` at ``SMALL_CELLS``, then the
-    shipped launch (and ``baseline``'s candidate.cu) at ``WIDTH_CELLS``."""
+def _small_defines(variant):
+    """``-D`` flags of a few-lane variant: (lanes, threads) and, for
+    kernel C, whether it stages its steps where K > 1."""
+    K, threads, *staged = variant
+    return [f"-DRQ_SMALL_LANES={K}", f"-DRQ_SMALL_THREADS={threads}",
+            f"-DRQ_WIDE_THREADS={threads}",
+            *(f"-DRQ_SMALL_STAGE={v}" for v in staged)]
+
+
+SMALL = {   # kernel: (variants, variant cells, width cells, launch, query)
+    "candidate": (SMALL_VARIANTS, SMALL_CELLS, WIDTH_CELLS,
+                  candidate_cuda.launch_candidate,
+                  candidate_cuda.block_shared_memory),
+    "step": (STEP_VARIANTS, STEP_CELLS, STEP_WIDTH_CELLS,
+             step_cuda.launch_step, step_cuda.block_shared_memory)}
+MODEL_IDS = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
+             "cartpole": tile_model.CARTPOLE,
+             "quadrotor": tile_model.QUADROTOR}
+
+
+def _bound_entry(kernel, lib, suffix="f32"):
+    return getattr(_build._bind(ctypes.CDLL(str(lib)), (suffix,)),
+                   f"ratilqr_{kernel}_{suffix}")
+
+
+def small_sweep(kernel, device, baseline=None) -> None:
+    """Kernel C or B at n <= 4: its variants at its variant cells, then
+    the shipped launch (and ``baseline``'s source) at its width cells, then
+    the flag check with the contraction policy's levels."""
     f32 = torch.float32
-    units = {v: (_build.CSRC_DIR / "candidate.cu",
-                 f"small_candidate_{'x'.join(map(str, v))}",
-                 [f"-DRQ_SMALL_LANES={v[0]}", f"-DRQ_SMALL_THREADS={v[1]}",
-                  f"-DRQ_WIDE_THREADS={v[1]}", f"-DRQ_SMALL_STAGE={v[2]}"])
-             for v in SMALL_VARIANTS}
-    units["no_fma"] = (_build.CSRC_DIR / "candidate.cu",
-                       "small_candidate_no_fma", ["-fmad=false"])
-    if baseline is not None:
-        units["baseline"] = (Path(baseline).resolve() / "candidate.cu",
-                             "small_candidate_baseline", [])
+    variants, cells, width_cells, launch, query = SMALL[kernel]
+    source = _build.CSRC_DIR / f"{kernel}.cu"
+    units = {v: (source, f"small_{kernel}_{'x'.join(map(str, v))}",
+                 _small_defines(v)) for v in variants}
+    units.update(_flag_units(kernel, baseline))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
         built = dict(zip(units, pool.map(
             lambda u: _compile(u[0], u[1], "f32", u[2]), units.values())))
-    print(f"small sweep: built {len(units)} units in "
+    print(f"small sweep {kernel}: built {len(units)} units in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     shipped_lib = _build.build()
-    _print_small_build("shipped", shipped_lib, _build.ptxas_report(
+    _print_small_build(kernel, "shipped", shipped_lib, _build.ptxas_report(
         (shipped_lib.parent / "build.log").read_text()), 0.0)
     entries = {}
     for v, (lib, rows, secs) in built.items():
-        _print_small_build(v, lib, rows, secs)
-        entries[v] = getattr(_build._bind(ctypes.CDLL(str(lib)), ("f32",)),
-                             "ratilqr_candidate_f32")
-    for model, horizon, B in SMALL_CELLS:
+        _print_small_build(kernel, v, lib, rows, secs)
+        entries[v] = _bound_entry(kernel, lib)
+    for model, horizon, B in cells:
         case = kernel_check.timing_cases(model, horizon, B, f32,
-                                         device)["candidate"]()
+                                         device)[kernel]()
         args = case[1]()
-        shipped = candidate_cuda.launch_candidate(*args)
+        shipped = launch(*args)
         times = {}
-        for v in SMALL_VARIANTS + SMALL_VARIANTS[::-1]:
-            out = candidate_cuda.launch_candidate(*args, entries[v])
+        timed = (*variants, *_flag_units(kernel))   # with the policy levels
+        for v in timed + timed[::-1]:
+            out = launch(*args, entries[v])
             times.setdefault(v, []).append(kernel_check.time_ms(
-                lambda: candidate_cuda.launch_candidate(*args, entries[v])))
+                lambda: launch(*args, entries[v])))
             if len(times[v]) == 2:
-                print(f"small sweep {model} T={horizon} B={B} f32 (lanes, "
-                      f"threads, staged) {v}: launch alone "
-                      f"{times[v][0]:.4f} / {times[v][1]:.4f} ms (two "
-                      f"passes); shipped outputs and flags bit for bit: "
-                      f"{_same(out, shipped)}; {_diff(out, shipped)}",
-                      flush=True)
+                print(f"small sweep {kernel} {model} T={horizon} B={B} f32 "
+                      f"{v}: launch alone {times[v][0]:.4f} / "
+                      f"{times[v][1]:.4f} ms (two passes); shipped outputs "
+                      f"and flags bit for bit: {_same(out, shipped)}; "
+                      f"{_diff(out, shipped)}", flush=True)
         del case, args, shipped
         torch.cuda.empty_cache()
-    for model, horizon, B in WIDTH_CELLS:
-        model_id = {"unicycle": tile_model.UNICYCLE,
-                    "cartpole": tile_model.CARTPOLE}[model]
-        nbytes, solves, lanes = candidate_cuda.block_shared_memory(
-            model_id, f32, B)
+    for model, horizon, B in width_cells:
+        nbytes, solves, lanes = query(MODEL_IDS[model], f32, B)
         case = kernel_check.timing_cases(model, horizon, B, f32,
-                                         device)["candidate"]()
+                                         device)[kernel]()
         args = case[1]()
-        shipped = candidate_cuda.launch_candidate(*args)
+        shipped = launch(*args)
         order = (["baseline", "shipped", "shipped", "baseline"]
                  if baseline is not None else ["shipped", "shipped"])
         times = {}
         for name in order:
             entry = entries.get(name)
             times.setdefault(name, []).append(kernel_check.time_ms(
-                lambda: candidate_cuda.launch_candidate(*args, entry)))
-        line = (f"width {model} T={horizon} B={B} f32: shipped (K={lanes}, "
-                f"{solves} solves a block, {nbytes} B shared) launch alone "
+                lambda: launch(*args, entry)))
+        line = (f"width {kernel} {model} T={horizon} B={B} f32: shipped "
+                f"(K={lanes}, {solves} solves a block, {nbytes} B shared) "
+                "launch alone "
                 + " / ".join(f"{t:.4f}" for t in times["shipped"]) + " ms")
         if baseline is not None:
-            out = candidate_cuda.launch_candidate(*args, entries["baseline"])
+            out = launch(*args, entries["baseline"])
             line += (", baseline " + " / ".join(
                 f"{t:.4f}" for t in times["baseline"]) + " ms (turns: "
                 "baseline, shipped, shipped, baseline); baseline "
@@ -330,44 +388,124 @@ def small_sweep(device, baseline=None) -> None:
         print(line, flush=True)
         del case, args, shipped
         torch.cuda.empty_cache()
-    flag_check(device, {name: entries[name] for name in ("no_fma", "baseline")
-                        if name in entries})
+    flag_check(kernel, device, {name: entries[name]
+                                for name in _flag_units(kernel, baseline)})
 
 
-def flag_check(device, builds) -> None:
-    """At ``FLAG_CASE`` in float32: the lanes whose fail flag differs from
-    the float64 plain version's, for the shipped build, each of ``builds``
-    (name: entry point) and the plain version."""
+def _flag_units(kernel, baseline=None):
+    """``{name: (source, tag, defines)}`` of the builds the flag check
+    holds beside the shipped one: without fused multiply-adds, at each
+    level of the contraction policy, and ``baseline``'s source."""
+    source = _build.CSRC_DIR / f"{kernel}.cu"
+    units = {"no_fma": (source, f"small_{kernel}_no_fma", ["-fmad=false"])}
+    for level in PSD_LEVELS:
+        units[f"policy{level}"] = (source, f"small_{kernel}_policy{level}",
+                                   [f"-DRQ_PSD_ROUNDING={level}"])
+    if baseline is not None:
+        units["baseline"] = (Path(baseline).resolve() / f"{kernel}.cu",
+                             f"small_{kernel}_baseline", [])
+    return units
+
+
+def flags_sweep(device, baseline=None) -> None:
+    """The flag check of kernels C and B alone (``flags``)."""
+    units = {(kernel, name): unit for kernel in SMALL
+             for name, unit in _flag_units(kernel, baseline).items()}
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        built = dict(zip(units, pool.map(
+            lambda u: _compile(u[0], u[1], "f32", u[2]), units.values())))
+    for kernel in SMALL:
+        flag_check(kernel, device, {
+            name: _bound_entry(kernel, built[k, name][0])
+            for k, name in built if k == kernel})
+
+
+FLAG_INPUTS = {   # kernel: (inputs, plain version, layout, launch)
+    "candidate": (kernel_check.candidate_inputs,
+                  candidate_cuda.candidate_bank_plain,
+                  candidate_cuda.candidate_layout,
+                  candidate_cuda.launch_candidate),
+    "step": (kernel_check.step_inputs,
+             step_cuda.step_optimize_bank_plain, step_cuda.step_layout,
+             step_cuda.launch_step)}
+
+
+def flag_check(kernel, device, builds) -> None:
+    """At ``FLAG_CASE`` in float32: the lanes whose fail flags (m_fail,
+    and h_fail for kernel B) differ from the float64 plain version's, for
+    the shipped build, each of ``builds`` (name: entry point) and the
+    plain version."""
     model, horizon, B = FLAG_CASE
-    args = kernel_check.candidate_inputs(model, horizon, B, torch.float32,
-                                         device)
+    inputs, plain, layout_of, launch = FLAG_INPUTS[kernel]
+    args = inputs(model, horizon, B, torch.float32, device)
     prob64, noise64 = kernel_check._problem64(model, horizon, device)
-    ref = candidate_cuda.candidate_bank_plain(
-        prob64, *map(kernel_check._f64, args[1:-1]), noise64).m_fail
-    layout = candidate_cuda.candidate_layout(*args)
-    flags = {"shipped": candidate_cuda.launch_candidate(*layout).m_fail,
-             **{name: candidate_cuda.launch_candidate(*layout, entry).m_fail
-                for name, entry in builds.items()},
-             "plain": candidate_cuda.candidate_bank_plain(*args).m_fail}
-    theta = args[5]
-    for name, got in flags.items():
-        lanes = torch.nonzero(got != ref).flatten().tolist()
-        print(f"flag check {model} T={horizon} B={B} f32, {name}: "
-              f"{len(lanes)} lanes' fail flags differ from float64's "
-              + ", ".join(f"lane {b} (θ {float(theta[b]):g}, {bool(got[b])})"
-                          for b in lanes[:8]), flush=True)
+    ref = plain(prob64, *map(kernel_check._f64, args[1:-1]), noise64)
+    layout = layout_of(*args)
+    outs = {"shipped": launch(*layout),
+            **{name: launch(*layout, entry) for name, entry in builds.items()},
+            "plain": plain(*args)}
+    theta = args[5] if kernel == "candidate" else args[3]
+    for name, got in outs.items():
+        for flag in ("m_fail", "h_fail"):
+            if not hasattr(got, flag):
+                continue
+            g, r = getattr(got, flag), getattr(ref, flag)
+            lanes = torch.nonzero(g != r).flatten().tolist()
+            print(f"flag check {kernel} {model} T={horizon} B={B} f32, "
+                  f"{name}: {len(lanes)} lanes' {flag} differ from float64's"
+                  + "".join(f", lane {b} (θ {float(theta[b]):g}, "
+                            f"{bool(g[b])})" for b in lanes[:8]), flush=True)
+
+
+def policy_sweep(device) -> None:
+    """Every kernel's launch alone with the contraction policy off
+    (``-DRQ_PSD_ROUNDING=0``) and as shipped, at ``POLICY_CELLS`` in
+    float32, in turns (off, shipped, shipped, off), with the largest
+    difference between the two."""
+    kernels = ("riccati", "step", "candidate", "riccati_folded")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        built = dict(zip(kernels, pool.map(lambda k: _compile(
+            _build.CSRC_DIR / f"{k}.cu", f"policy0_{k}", "f32",
+            ["-DRQ_PSD_ROUNDING=0"]), kernels)))
+    print(f"policy sweep: built {len(kernels)} units in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    off = {k: _bound_entry(k, lib) for k, (lib, _, _) in built.items()}
+    for model, horizon, B in POLICY_CELLS:
+        cases = kernel_check.timing_cases(model, horizon, B, torch.float32,
+                                          device)
+        for kernel in kernels:
+            case = cases[kernel]()
+            args = case[1]()
+            launch = LAUNCHES[kernel]
+            times = {}
+            for name in ("off", "shipped", "shipped", "off"):
+                entry = off[kernel] if name == "off" else None
+                times.setdefault(name, []).append(kernel_check.time_ms(
+                    lambda: launch(*args, entry)))
+            a, b = launch(*args, off[kernel]), launch(*args)
+            print(f"policy {kernel} {model} T={horizon} B={B} f32: launch "
+                  "alone, policy off " + " / ".join(
+                      f"{t:.4f}" for t in times["off"]) + " ms, shipped "
+                  + " / ".join(f"{t:.4f}" for t in times["shipped"])
+                  + " ms (turns: off, shipped, shipped, off); outputs bit "
+                  f"for bit: {_same(a, b)}", flush=True)
+            del case, args, a, b
+            torch.cuda.empty_cache()
 
 
 def main(argv=()) -> int:
     kernel = argv[0] if argv else "candidate"
     rest = list(argv[1:])
     baseline = None
-    if kernel == "candidate" and len(rest) == 2 and rest[0] == "--baseline":
+    if ((kernel in SMALL or kernel == "flags") and len(rest) == 2
+            and rest[0] == "--baseline"):
         baseline, rest = rest[1], []
-    if kernel not in LAUNCHES or rest:
-        print(f"usage: python -m ratilqr_tpu_torch.team_sweep "
-              f"[candidate [--baseline DIR]|"
-              f"{'|'.join(k for k in LAUNCHES if k != 'candidate')}]",
+    if (kernel not in LAUNCHES and kernel not in ("policy", "flags")
+            or rest):
+        print("usage: python -m ratilqr_tpu_torch.team_sweep "
+              "[candidate [--baseline DIR]|step [--baseline DIR]|riccati|"
+              "riccati_folded|policy|flags [--baseline DIR]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -376,8 +514,14 @@ def main(argv=()) -> int:
     device = torch.device("cuda", 0)
     print(f"team_sweep {kernel}: {torch.cuda.get_device_name(0)}",
           flush=True)
-    if kernel == "candidate":
-        small_sweep(device, baseline)
+    if kernel == "policy":
+        policy_sweep(device)
+        return 0
+    if kernel == "flags":
+        flags_sweep(device, baseline)
+        return 0
+    if kernel in SMALL:
+        small_sweep(kernel, device, baseline)
     sweep(kernel, device)
     return 0
 

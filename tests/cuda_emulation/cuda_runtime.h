@@ -72,6 +72,16 @@ int cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
 alignas(64) inline unsigned char smem_raw[kEmulatedSharedBytes];
 inline double g_shuffle[64][32];
 
+// The round-to-nearest arithmetic intrinsics, which nvcc never fuses into
+// a multiply-add: plain operations here (host code in ISO C++ mode is not
+// contracted either).
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes) {
   std::memcpy(dst, src, bytes);
 }

@@ -1,10 +1,11 @@
 """The four CUDA kernels against their plain PyTorch versions (unicycle,
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
 at its first use), kernels A's, B's, C's and D's one-solve-per-team designs
-on the quadrotor at the edges of their blocks (A also at B=262,144), kernel
-C's few-lane design at n <= 4 at widths that take each of its lanes a solve
-(4 and 1), A and
-B on the n=12 h_fail fixture, which shapes kernels A and D solve per team,
+on the quadrotor at the edges of their blocks (A also at B=262,144),
+kernels B's and C's few-lane designs at n <= 4 at widths that take each of
+their lanes a solve (4 and 1), their fail flags on the near-breakdown
+cartpole fixture, A and B on the n=12 h_fail fixture and B on each small
+model's, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
 inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
@@ -121,20 +122,69 @@ def test_step_team_kernel_latches_h_fail(device, B, dtype):
     kc.check_step(kc.H_FAIL, 50, B, dtype, device)
 
 
+SMALL_C = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
+           "cartpole": tile_model.CARTPOLE}
+# Kernels B's and C's float32 fail flags disagreed with the plain
+# version's on a near-breakdown lane of this fixture (θ = 0.05, lane
+# 1062) before the contraction policy (csrc/smallmat.cuh).
+FLAG_CASE = ("cartpole", 20, 33_793)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_step_design_follows_the_model(device, dtype):
-    """One solve per team, with its working set in dynamic shared memory,
-    on the quadrotor only; one solve per thread on the small models."""
-    from ratilqr_tpu_torch.ops import tile_model
-    from ratilqr_tpu_torch.ops.step_cuda import block_shared_memory
-    for model_id in (tile_model.UNICYCLE, tile_model.LQR,
-                     tile_model.CARTPOLE):
-        assert block_shared_memory(model_id, dtype)[0] == 0
-    nbytes, teams, lanes = block_shared_memory(tile_model.QUADROTOR, dtype)
+    """One solve per team of 16 lanes, with its working set in dynamic
+    shared memory, on the quadrotor; on the small models, with no shared
+    memory, one solve per team of 4 lanes, 32 a block, up to SMs x 128
+    lanes (512 threads an SM, the rule kernel C shares), and of 1 lane, 64
+    a block, above."""
+    from ratilqr_tpu_torch.ops import candidate_cuda
+    from ratilqr_tpu_torch.ops.step_cuda import (block_shared_memory,
+                                                 first_widths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for model_id in SMALL_C.values():
+        assert first_widths(model_id, dtype) == {4: 1, 1: sms * 128 + 1}
+        assert first_widths(model_id, dtype) == candidate_cuda.first_widths(
+            model_id, dtype)
+        assert block_shared_memory(model_id, dtype, 1) == (0, 32, 4)
+        assert block_shared_memory(model_id, dtype, 262_144) == (0, 64, 1)
+    nbytes, teams, lanes = block_shared_memory(tile_model.QUADROTOR, dtype, 1)
     assert lanes in (16, 32) and teams * lanes % 32 == 0
     assert 0 < nbytes <= 232_448   # a block's limit on the H100
     with pytest.raises(NotImplementedError):
-        block_shared_memory(99, dtype)
+        block_shared_memory(99, dtype, 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [4, 1])
+@pytest.mark.parametrize("model,T", [("unicycle", 20), ("lqr", 7),
+                                     ("cartpole", 30)])
+def test_step_small_kernel_at_each_lane_width(device, model, T, lanes,
+                                              dtype):
+    """Kernel B at n <= 4 at a width whose launch takes 4 lanes a solve (a
+    ragged 133) or 1 (the first such width on this card, from the
+    launch's own query); θ from ``THETA_MIX``, so the θ = 1e6 lanes latch
+    m_fail."""
+    from ratilqr_tpu_torch.ops.step_cuda import first_widths
+    B = 133 if lanes == 4 else first_widths(SMALL_C[model], dtype)[1]
+    kc.check_step(model, T, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [4, 1])
+@pytest.mark.parametrize("model", list(SMALL_C))
+def test_step_small_kernel_latches_h_fail(device, model, lanes, dtype):
+    """Each small model's h_fail fixture at a width taking 4 lanes a solve
+    and at the first taking 1: the μ = −1e6 lanes latch h_fail and not
+    m_fail, the θ = 1e6 lanes m_fail, as in the plain version."""
+    from ratilqr_tpu_torch.ops.step_cuda import first_widths
+    B = 37 if lanes == 4 else first_widths(SMALL_C[model], dtype)[1]
+    kc.check_step(kc.h_fail_fixture(model), 20, B, dtype, device)
+
+
+def test_step_near_breakdown_flag_cartpole(device):
+    """Kernel B on the cartpole at T=20, B=33,793 in float32 (one lane a
+    solve): its m_fail and h_fail flags equal the plain version's."""
+    kc.check_step(*FLAG_CASE, torch.float32, device)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -156,10 +206,6 @@ def test_candidate_team_kernel_matches_plain(device, B, T, dtype):
     kc.check_candidate("quadrotor", T, B, dtype, device)
 
 
-SMALL_C = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
-           "cartpole": tile_model.CARTPOLE}
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("lanes", [4, 1])
 @pytest.mark.parametrize("model,T", [("unicycle", 20), ("lqr", 7),
@@ -175,14 +221,10 @@ def test_candidate_small_kernel_at_each_lane_width(device, model, T, lanes,
     kc.check_candidate(model, T, B, dtype, device)
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "known fault: on this near-breakdown lane (θ = 0.05, lane 1062) the "
-    "float32 kernel at one lane a solve keeps m_fail False while the "
-    "plain float32 version and float64 latch it"))
 def test_candidate_near_breakdown_flag_cartpole(device):
     """Kernel C on the cartpole at T=20, B=33,793 in float32 (one lane a
-    solve): its fail flags should equal the plain version's."""
-    kc.check_candidate("cartpole", 20, 33_793, torch.float32, device)
+    solve): its fail flags equal the plain version's."""
+    kc.check_candidate(*FLAG_CASE, torch.float32, device)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -109,8 +109,9 @@ def test_step_optimize_restarts_match_jax_f64():
 
 
 def test_team_sweep_takes_the_kernel(monkeypatch):
-    """``team_sweep step``, ``riccati`` and ``riccati_folded`` exit 1
-    without a card, an unknown kernel or a second argument 2; every team
+    """``team_sweep step`` (also with ``--baseline``), ``riccati``,
+    ``riccati_folded``, ``policy`` and ``flags`` exit 1 without a card, an
+    unknown kernel or a stray argument 2; every team
     shape has a lane for each of the quadrotor's 12 rows of AᵀDS and 4 of
     BᵀDS (team_mat.cuh:dp_step), and kernel A's and D's shapes stage with
     one buffer or two."""
@@ -125,3 +126,28 @@ def test_team_sweep_takes_the_kernel(monkeypatch):
     assert team_sweep.main(["riccati_folded"]) == 1
     assert team_sweep.main(["folded"]) == 2
     assert team_sweep.main(["step", "candidate"]) == 2
+    assert team_sweep.main(["step", "--baseline", "csrc"]) == 1
+    assert team_sweep.main(["policy"]) == 1
+    assert team_sweep.main(["flags", "--baseline", "csrc"]) == 1
+    assert team_sweep.main(["policy", "--baseline", "csrc"]) == 2
+
+
+@pytest.mark.parametrize("kernel", ["candidate", "step"])
+def test_team_sweep_small_variants_cover_the_shipped_kernels(kernel):
+    """Each few-lane variant of kernels C and B takes 1 or 4 lanes a solve
+    in whole warps of solves, C's stage only where K > 1, and the variants
+    hold the shipped kernels (C: (4, 128, 1) and (1, 64, 0); B, which
+    stages nothing: (4, 128) and (1, 64)); the flag check builds every
+    level of the contraction policy."""
+    from ratilqr_tpu_torch import team_sweep
+    variants = team_sweep.SMALL[kernel][0]
+    for K, threads, *staged in variants:
+        assert K in (1, 4) and threads % 32 == 0
+        assert len(staged) == (kernel == "candidate")
+        assert all(v in (0, 1) and (K > 1 or not v) for v in staged)
+    shipped = ({(4, 128, 1), (1, 64, 0)} if kernel == "candidate" else
+               {(4, 128), (1, 64)})
+    assert shipped <= set(variants)
+    units = team_sweep._flag_units(kernel)
+    assert set(units) == {"no_fma", "policy0", "policy1", "policy2"}
+    assert units["policy2"][2] == ["-DRQ_PSD_ROUNDING=2"]
