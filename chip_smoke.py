@@ -258,8 +258,16 @@ DESIGNS = {   # how each kernel spreads a bank over the card
                 "working set in shared memory, the next step's streamed "
                 "blocks double-buffered by cp.async) at (12, 4), the "
                 "quadrotor, and at first-use shapes a team takes (4 < n, "
-                "m <= 4, n + m <= 16), e.g. (6, 3); one solve per thread "
-                "otherwise: the unicycle, LQR and the cartpole"),
+                "m <= 4, n + m <= 16), e.g. (6, 3); at n, m <= 4 (the "
+                "unicycle, LQR and the cartpole) one solve per team of "
+                "K = 4 or 1 lanes of a warp (K picked by the rule kernels "
+                "B and C share), every lane holding the carry and the "
+                "step's blocks, the lanes splitting M's and H's solves, "
+                "the DP's products and the stores by shuffles; 128 threads "
+                "a block (64 at K = 1); at K = 4 each step's blocks (and "
+                "policy and noise model) staged by cp.async in two shared "
+                "buffers, one block barrier a step; one solve per thread "
+                "at the other shapes (m > 4)"),
     "step": ("one solve per team of 16 lanes (two a warp, 8 a block, "
              "working set in shared memory) at n=12, the quadrotor; at "
              "n <= 4 (the unicycle, LQR and the cartpole) one solve per "
@@ -337,8 +345,14 @@ def build():
     """Phase 2: build the kernels; prints each source's nvcc time and each
     kernel's ptxas report, the team kernels' with their shared memory a
     block, then the same for kernels A at (6, 3) and D at n=6, built for
-    those shapes alone."""
+    those shapes alone, beside the shipped library's build."""
+    units = [(kernel, shape, suffix)
+             for kernel, shape in (("riccati", (6, 3)),
+                                   ("riccati_folded", (6,)))
+             for suffix in ("f32", "f64")]
     t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(len(units))
+    first_use = pool.map(lambda u: _build.build_shape(*u), units)
     lib_path = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} "
@@ -353,8 +367,8 @@ def build():
                 print(f"kernel A, one solve per team ((12, 4), {dtype}) "
                       f"{_build.short_name(fn)}: {regs} registers, {stack} B "
                       f"stack frame, {stores} B spill stores", flush=True)
-        smem = {(opt, w): riccati_cuda.block_shared_memory(12, 4, dtype, opt,
-                                                            w)
+        smem = {(opt, w): riccati_cuda.block_shared_memory(12, 4, dtype,
+                                                            B_MAIN, opt, w)
                 for opt in (True, False) for w in (True, False)}
         print(f"kernel A, one solve per team ((12, 4), {dtype}): dynamic "
               "shared memory a block of {1} teams of {2} lanes: ".format(
@@ -389,29 +403,23 @@ def build():
                           f"dynamic shared memory a block of {teams} teams "
                           f"of {lanes} lanes", flush=True)
     small_report(rows)
-    units = [(kernel, shape, suffix)
-             for kernel, shape in (("riccati", (6, 3)),
-                                   ("riccati_folded", (6,)))
-             for suffix in ("f32", "f64")]
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
-        libs = list(pool.map(lambda u: _build.build_shape(*u), units))
+    libs = list(first_use)
+    pool.shutdown()
     for unit in units:
         _build.shape_library(*unit)
-    print(f"build at first use: {time.perf_counter() - t0:.1f} s for A at "
-          "(6, 3) and D at n=6, f32 and f64, in parallel", flush=True)
+    print(f"build at first use: {time.perf_counter() - t0:.1f} s since the "
+          "build began, for A at (6, 3) and D at n=6, f32 and f64, in "
+          "parallel with the shipped library's", flush=True)
     for lib in {lib.parent: lib for lib in libs}.values():   # one log each
         for line in _build.report(lib):
             print("  " + line, flush=True)
 
 
-# Kernels B's and C's models at n <= 4 and the horizons phase 3 checks
-# them at.
+# Kernels A's, B's and C's models at n <= 4 and the horizons phase 3
+# checks them at.
 SMALL_C_MODELS = {"unicycle": (tile_model.UNICYCLE, FLEET_T),
                   "lqr": (tile_model.LQR, 7),
                   "cartpole": (tile_model.CARTPOLE, CART_T)}
-# Kernels B's and C's few-lane designs: (label, kernel, wrapper module).
-SMALL_KERNELS = (("B", "step", step_cuda), ("C", "candidate", candidate_cuda))
 # The near-breakdown fixture on which kernels B's and C's float32 fail
 # flags disagreed with the plain version's before the contraction policy
 # (csrc/smallmat.cuh): (model, horizon, width).
@@ -419,21 +427,52 @@ FLAG_CASE = ("cartpole", 20, 33_793)
 RAT_WIDTH = RAT_CONFIG.num_samples   # RAT iLQR's banks (kernel B, T=100)
 
 
+class SmallA:
+    """Kernel A's few-lane launch queries by model, as kernels B's and C's
+    wrappers give them (A's take the shape and the pass)."""
+    DIMS = {"unicycle": (3, 2), "lqr": (2, 2), "cartpole": (4, 1)}
+    IDS = {tile_model.UNICYCLE: "unicycle", tile_model.LQR: "lqr",
+           tile_model.CARTPOLE: "cartpole"}
+
+    @classmethod
+    def first_widths(cls, model_id, dtype, optimizing=True):
+        return riccati_cuda.first_widths(*cls.DIMS[cls.IDS[model_id]],
+                                         dtype, optimizing)
+
+    @classmethod
+    def block_shared_memory(cls, model_id, dtype, B, optimizing=True):
+        return riccati_cuda.block_shared_memory(
+            *cls.DIMS[cls.IDS[model_id]], dtype, B, optimizing)
+
+    @classmethod
+    def staged_width(cls, model, dtype):
+        """The first width whose launch stages its steps at 4 lanes."""
+        return riccati_cuda.launch_bands(*cls.DIMS[model], dtype)[4, True]
+
+
+# Kernels A's, B's and C's few-lane designs: (label, kernel, queries,
+# the few-lane kernel's function name).
+SMALL_DESIGNS = (("A", "riccati", SmallA, "riccati_small_kernel"),
+                 ("B", "step", step_cuda, "step_kernel"),
+                 ("C", "candidate", candidate_cuda, "candidate_kernel"))
+
+
 def one_lane_widths(module, dtype):
-    """{model: the first width at which kernel B's or C's launch (the
-    wrapper ``module``'s) at n <= 4 takes one lane a solve on this card},
+    """{model: the first width at which kernel A's, B's or C's launch (the
+    queries of ``module``) at n <= 4 takes one lane a solve on this card},
     from the launch's own query."""
     return {model: module.first_widths(model_id, dtype)[1]
             for model, (model_id, _) in SMALL_C_MODELS.items()}
 
 
 def small_report(rows):
-    """Phase 2: kernels B's and C's few-lane kernels (n <= 4): each
+    """Phase 2: kernels A's, B's and C's few-lane kernels (n <= 4): each
     instantiation's ptxas report, and the lanes a solve, solves a block and
-    shared memory the launch takes at the widths of this script."""
-    for label, kernel, module in SMALL_KERNELS:
+    shared memory the launch takes at the widths of this script (kernel A:
+    its optimizing pass)."""
+    for label, kernel, module, name in SMALL_DESIGNS:
         for fn, regs, stores, loads, stack in rows:
-            if f"{kernel}_kernel" in fn:   # not the team kernel
+            if name in fn and "team" not in fn:
                 print(f"kernel {label}, few lanes a solve (n <= 4) "
                       f"{_build.short_name(fn)}: {regs} registers, {stack} B "
                       f"stack frame, {stores} B spill stores, {loads} B "
@@ -454,82 +493,122 @@ def small_report(rows):
                       flush=True)
 
 
+def case_text(case) -> str:
+    """A phase 3 case, (model, T, B[, variant or shared W]), as text."""
+    model, horizon, B, *rest = case
+    text = f"{model} T={horizon} B={B}"
+    for r in rest:
+        text += " " + ("-".join(k for k, v in r.items() if v) or "evaluating"
+                       if isinstance(r, dict) else
+                       "shared W" if r else "per-lane W")
+    return text
+
+
 def check_kernels(device):
     """Phase 3: returns the largest float32 difference per kernel."""
     err32 = {}
     cases = [("unicycle", T), ("lqr", 7), ("quadrotor", QUAD_T),
              ("cartpole", CART_T)]
     for dtype in (torch.float32, torch.float64):
-        worst = {name: (0.0, 0.0) for name in KERNELS}
+        # Per kernel: the largest difference, and the case (by name) that
+        # came closest to its tolerance, with that check's agreement.
+        err = {name: 0.0 for name in KERNELS}
+        worst = {}
 
-        def keep(name, result):
-            worst[name] = tuple(map(max, worst[name], result))
+        def keep(name, case, result):
+            err[name] = max(err[name], result.err)
+            if name not in worst or result.ratio > worst[name][1].ratio:
+                worst[name] = (case, result)
 
         for B in (1, 5, 4_099):
             for model, horizon in cases + [(LINEAR, LINEAR_T),
                                            (kernel_check.H_FAIL, QUAD_T)]:
                 for variant in kernel_check.RICCATI_VARIANTS:
-                    keep("riccati", kernel_check.check_riccati(
-                        model, horizon, B, dtype, device, **variant))
+                    keep("riccati", (model, horizon, B, variant),
+                         kernel_check.check_riccati(
+                             model, horizon, B, dtype, device, **variant))
                 kernel_check.clear_caches()
             for model, horizon in cases + [(LINEAR, LINEAR_T)]:
                 for shared_w in (True, False):
-                    keep("riccati_folded", kernel_check.check_riccati_folded(
-                        model, horizon, B, dtype, device, shared_w))
+                    keep("riccati_folded", (model, horizon, B, shared_w),
+                         kernel_check.check_riccati_folded(
+                             model, horizon, B, dtype, device, shared_w))
             for model, horizon in cases:
-                keep("candidate", kernel_check.check_candidate(
-                    model, horizon, B, dtype, device))
+                keep("candidate", (model, horizon, B),
+                     kernel_check.check_candidate(model, horizon, B, dtype,
+                                                  device))
             for model, horizon in cases + [
                     ("negative_curvature", 7), (kernel_check.H_FAIL, QUAD_T),
                     (kernel_check.h_fail_fixture("cartpole"), CART_T)]:
-                keep("step", kernel_check.check_step(model, horizon, B, dtype,
-                                                     device))
+                keep("step", (model, horizon, B), kernel_check.check_step(
+                    model, horizon, B, dtype, device))
         for B in FLEET_WIDTHS:   # the fleets' path: kernels A and C
             for variant in kernel_check.RICCATI_VARIANTS:
-                keep("riccati", kernel_check.check_riccati(
-                    "unicycle", FLEET_T, B, dtype, device, **variant))
-            keep("candidate", kernel_check.check_candidate(
-                "unicycle", FLEET_T, B, dtype, device))
+                keep("riccati", ("unicycle", FLEET_T, B, variant),
+                     kernel_check.check_riccati(
+                         "unicycle", FLEET_T, B, dtype, device, **variant))
+            keep("candidate", ("unicycle", FLEET_T, B),
+                 kernel_check.check_candidate("unicycle", FLEET_T, B, dtype,
+                                              device))
             kernel_check.clear_caches()
-        # Kernels B and C at n <= 4 take 4 lanes a solve at every width
+        # Kernels A, B and C at n <= 4 take 4 lanes a solve at every width
         # above; these are the first at which their launch takes 1.
-        one_lane = one_lane_widths(candidate_cuda, dtype)
+        one_lane = {label: one_lane_widths(module, dtype)
+                    for label, _, module, _ in SMALL_DESIGNS}
+        staged = {model: SmallA.staged_width(model, dtype)
+                  for model in SMALL_C_MODELS}
         for model, (model_id, horizon) in SMALL_C_MODELS.items():
-            keep("candidate", kernel_check.check_candidate(
-                model, horizon, one_lane[model], dtype, device))
-        one_lane_b = one_lane_widths(step_cuda, dtype)
-        for model, (model_id, horizon) in SMALL_C_MODELS.items():
-            keep("step", kernel_check.check_step(
-                model, horizon, one_lane_b[model], dtype, device))
+            for B in (staged[model], one_lane["A"][model]):
+                for variant in kernel_check.RICCATI_VARIANTS:
+                    keep("riccati", (model, horizon, B, variant),
+                         kernel_check.check_riccati(model, horizon, B, dtype,
+                                                    device, **variant))
+                kernel_check.clear_caches()
+            B = one_lane["C"][model]
+            keep("candidate", (model, horizon, B),
+                 kernel_check.check_candidate(model, horizon, B, dtype,
+                                              device))
+            B = one_lane["B"][model]
+            keep("step", (model, horizon, B), kernel_check.check_step(
+                model, horizon, B, dtype, device))
         torch.cuda.empty_cache()
         f32 = dtype == torch.float32
         if f32:
-            keep("riccati", kernel_check.check_riccati_wide(
-                "quadrotor", QUAD_T, B_WIDE, dtype, device))
+            keep("riccati", ("quadrotor", QUAD_T, B_WIDE),
+                 kernel_check.check_riccati_wide(
+                     "quadrotor", QUAD_T, B_WIDE, dtype, device))
             kernel_check.clear_caches()
             torch.cuda.empty_cache()
             for shared_w in (True, False):
-                keep("riccati_folded", kernel_check.check_riccati_folded_wide(
-                    "quadrotor", QUAD_T, B_WIDE, dtype, device, shared_w))
+                keep("riccati_folded", ("quadrotor", QUAD_T, B_WIDE, shared_w),
+                     kernel_check.check_riccati_folded_wide(
+                         "quadrotor", QUAD_T, B_WIDE, dtype, device,
+                         shared_w))
                 torch.cuda.empty_cache()
         print(f"kernels vs plain, {dtype}, unicycle T=100, LQR T=7, "
               f"quadrotor T={QUAD_T}, cartpole T={CART_T} (A-D), "
               f"{LINEAR} T={LINEAR_T} (A, D) and the h_fail fixture (A, B), "
               f"B=1, B=5 and B=4099; the unicycle T={FLEET_T} at the "
               f"fleets' widths B={FLEET_WIDTHS[0]} and B={FLEET_WIDTHS[1]} "
-              f"(A, C); C on the unicycle, LQR and the cartpole at "
-              f"B={', '.join(map(str, one_lane.values()))} and B at "
-              f"B={', '.join(map(str, one_lane_b.values()))} (the first "
-              f"widths taking 1 lane a solve)"
+              f"(A, C); A, B and C on the unicycle, LQR and the cartpole at "
+              + "; ".join(f"{label} B={', '.join(map(str, w.values()))}"
+                          for label, w in one_lane.items())
+              + " (the first widths taking 1 lane a solve), A at "
+              f"B={', '.join(map(str, staged.values()))} (the first "
+              "staging its steps at 4 lanes)"
               + (f", A's slim optimizing pass and D (shared and per-lane W)"
                  f" on the quadrotor at B={B_WIDE}" if f32 else "") + ", "
               f"{len(kernel_check.RICCATI_VARIANTS)} riccati variants: agree; "
-              "max |kernel - plain|"
-              + (" (plain's own error vs float64)" if f32 else "") + ": "
-              + ", ".join(f"{k} {e:.3e}" + (f" ({p:.3e})" if f32 else "")
-                          for k, (e, p) in worst.items()), flush=True)
+              "max |kernel - plain|: "
+              + ", ".join(f"{k} {e:.3e}" for k, e in err.items())
+              + "; closest to its tolerance: " + "; ".join(
+                  f"{k} {case_text(case)}: |kernel - plain| {r.err:.3e} at "
+                  f"{r.ratio:.3f} of the allowance"
+                  + (f" (plain's own float32 error {r.plain_err:.3e})"
+                     if f32 else "")
+                  for k, (case, r) in worst.items()), flush=True)
         if f32:
-            err32 = {k: e for k, (e, _) in worst.items()}
+            err32 = dict(err)
     for model, horizon in (("unicycle", T), ("quadrotor", QUAD_T),
                            ("cartpole", CART_T)):
         m_fail, _ = kernel_check.expect_fail_pattern(model, horizon, 4_099,
@@ -566,16 +645,23 @@ def check_kernels(device):
           f"lanes of 4099 latch h_fail and {m_fail} θ=1e6 lanes m_fail in "
           "kernel A", flush=True)
     model, horizon, B = FLAG_CASE
-    errs = {label: kernel_check.check_candidate(*FLAG_CASE, torch.float32,
-                                                device)
-            if kernel == "candidate" else
-            kernel_check.check_step(*FLAG_CASE, torch.float32, device)
-            for label, kernel, _ in SMALL_KERNELS}
+    f32 = torch.float32
+    errs = {
+        "A optimizing": kernel_check.check_riccati(
+            *FLAG_CASE, f32, device, optimizing=True, slim=True,
+            shared_w=True, has_dl=False),
+        "A evaluating": kernel_check.check_riccati(
+            *FLAG_CASE, f32, device, optimizing=False, slim=True,
+            shared_w=True, has_dl=False),
+        "B": kernel_check.check_step(*FLAG_CASE, f32, device),
+        "C": kernel_check.check_candidate(*FLAG_CASE, f32, device)}
+    kernel_check.clear_caches()
     print(f"fail flags, near-breakdown fixture ({model} T={horizon} B={B} "
-          "float32, 1 lane a solve): kernel B's m_fail and h_fail and kernel "
-          "C's m_fail equal the plain version's on every lane; max |kernel "
-          "- plain| (plain's own error vs float64): " + ", ".join(
-              f"{label} {e:.3e} ({p:.3e})" for label, (e, p) in errs.items()),
+          "float32, 1 lane a solve): kernels A's (slim passes) and B's "
+          "m_fail and h_fail and kernel C's m_fail equal the plain version's "
+          "on every lane; max |kernel - plain| (plain's own error vs "
+          "float64): " + ", ".join(f"{label} {r.err:.3e} ({r.plain_err:.3e})"
+                                    for label, r in errs.items()),
           flush=True)
     return err32
 
@@ -1352,7 +1438,7 @@ def fleet_ileqg(device, name_power):
                                               lanes, theta, traj["atol"])
         errs[name] = (kernel_check._close(
             f"iLEQG fleet {name}, seeds 0-{S - 1}", got, want, lanes,
-            traj["rtol"], tol), float(tol.max()), drift)
+            traj["rtol"], tol)[0], float(tol.max()), drift)
     print(f"iLEQG fleet seeds 0-{S - 1}, steps 0-{k - 1}, against one-seed "
           f"episodes with the same generators (f32): " + ", ".join(
               f"max |Δ{name}| {e:.3e} (allowed {a:.3e} + rtol "
@@ -1807,21 +1893,23 @@ def timings(device, name_power):
     f32 = torch.float32
     result = {}
     # The kernel record's widths, and both for the quadrotor; the unicycle
-    # at B=16,384 and the cartpole at B=262,144 are left out to keep the
-    # run short (PERF.md keeps their last numbers).
+    # at B=16,384 and the cartpole at B=262,144 are left out, and the plain
+    # versions are not timed at B=262,144, to keep the run short (PERF.md
+    # keeps their last numbers).
     for model, horizon, B in (("unicycle", T, B_WIDE),
                               ("quadrotor", QUAD_T, B_MAIN),
                               ("quadrotor", QUAD_T, B_WIDE),
                               ("cartpole", CART_T, B_MAIN)):
         n, m = MODEL_DIMS[model]
-        times = kernel_check.kernel_timings(model, horizon, B, f32, device)
+        times = kernel_check.kernel_timings(model, horizon, B, f32, device,
+                                            plain=B != B_WIDE)
         for kernel, (ms, launch_ms, plain_ms) in times.items():
             bound, by = kernel_check.bound_ms(kernel, n, m, horizon, B, f32)
             result.setdefault((model, B), {})[kernel] = dict(
                 ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
-            plain = ("not measured (out of device memory)"
-                     if plain_ms is None else f"{plain_ms:.3f} ms")
+            plain = ("not measured" if plain_ms is None
+                     else f"{plain_ms:.3f} ms")
             print(f"time {kernel} {model} T={horizon} B={B} f32: wrapper "
                   f"{ms:.3f} ms, launch alone {launch_ms:.3f} ms, plain "
                   f"{plain}, bound {bound:.3f} ms ({by}) (median of 5, "
@@ -1856,21 +1944,25 @@ def timings(device, name_power):
           f"{bound:.5f} ms ({by}) (median of 5, after a warm-up, CUDA "
           f"events; {name_power})", flush=True)
     del args
-    for B in FLEET_WIDTHS:   # the fleets' banks: kernel C alone, no plain
-        _, layout, launch, _ = kernel_check.timing_cases(
-            "unicycle", FLEET_T, B, f32, device)["candidate"]()
-        args = layout()
-        launch_ms = kernel_check.time_ms(lambda: launch(args))
-        bound, by = kernel_check.bound_ms("candidate", 3, 2, FLEET_T, B, f32)
-        lanes = candidate_cuda.block_shared_memory(tile_model.UNICYCLE, f32,
-                                                   B)[2]
-        result[("unicycle_fleet", B)] = {"candidate": dict(
-            launch_ms=launch_ms, bound_ms=bound, bound_by=by, lanes=lanes)}
-        print(f"time candidate unicycle T={FLEET_T} B={B} f32 (the fleets' "
-              f"widths, {lanes} lanes a solve): launch alone "
-              f"{launch_ms:.4f} ms, bound {bound:.5f} ms ({by}) (median of "
-              f"5, after a warm-up, CUDA events; {name_power})", flush=True)
-        del args
+    for B in FLEET_WIDTHS:   # the fleets' banks: A and C alone, no plain
+        cases = kernel_check.timing_cases("unicycle", FLEET_T, B, f32, device)
+        for kernel, module in (("riccati", SmallA), ("candidate",
+                                                     candidate_cuda)):
+            _, layout, launch, _ = cases[kernel]()
+            args = layout()
+            launch_ms = kernel_check.time_ms(lambda: launch(args))
+            bound, by = kernel_check.bound_ms(kernel, 3, 2, FLEET_T, B, f32)
+            lanes = module.block_shared_memory(tile_model.UNICYCLE, f32,
+                                               B)[2]
+            result.setdefault(("unicycle_fleet", B), {})[kernel] = dict(
+                launch_ms=launch_ms, bound_ms=bound, bound_by=by,
+                lanes=lanes)
+            print(f"time {kernel} unicycle T={FLEET_T} B={B} f32 (the "
+                  f"fleets' widths, {lanes} lanes a solve): launch alone "
+                  f"{launch_ms:.4f} ms, bound {bound:.5f} ms ({by}) (median "
+                  f"of 5, after a warm-up, CUDA events; {name_power})",
+                  flush=True)
+            del args
     prob = unicycle(N=T, dtype=f32, device=device)
     bank = make_batched_solver(prob, BENCH_CONFIG, device=device)
     x0 = torch.zeros(3, dtype=f32, device=device)
@@ -1893,8 +1985,8 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
     the top level, the cartpole path (T=50, B=16,384, f32) under
     ``"cartpole"``, the unicycle path at B=262,144 under ``"unicycle"``,
     the quadrotor at B=262,144 under ``"quadrotor_wide"``, the unicycle
-    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"``, (kernel C,
-    launch alone) at the fleets' widths under ``"unicycle_fleet"`` and
+    at T=30 at RAT iLQR++'s widths under ``"unicycle_nm"``, (kernels A
+    and C, launch alone) at the fleets' widths under ``"unicycle_fleet"`` and
     (kernel B, launch alone) at RAT iLQR's width (T=100, B=10) under
     ``"unicycle_rat"``."""
     rows = []
@@ -1934,7 +2026,7 @@ def kernel_record(err32, quad_counts, cart_counts, earlier_counts, times):
             **({"unicycle_fleet": {
                 f"B={B}": {**times[("unicycle_fleet", B)][name],
                            "at": f"unicycle n=3 m=2 T={FLEET_T} B={B} f32"}
-                for B in FLEET_WIDTHS}} if name == "candidate" else {}),
+                for B in FLEET_WIDTHS}} if name in FLEET_KERNELS else {}),
             **({"unicycle_rat": {
                 **times[("unicycle_rat", RAT_WIDTH)][name],
                 "at": f"unicycle n=3 m=2 T={T} B={RAT_WIDTH} f32"}}

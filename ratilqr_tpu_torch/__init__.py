@@ -22,14 +22,19 @@ from ratilqr_tpu_torch.mpc_episode import (EpisodeResult, PlanOut,
                                            make_gaussian_simulator,
                                            make_ileqg_plan, make_nm_plan,
                                            make_pets_plan, make_ratilqr_plan)
-from ratilqr_tpu_torch.ops import (integrate_cost, rollout_feedback_noisy,
+from ratilqr_tpu_torch.ops import (Approximation, DPResult, approximate_model,
+                                   decrease_mu_delta, dp_evaluate, dp_optimize,
+                                   increase_mu_delta, integrate_cost,
+                                   rollout_feedback, rollout_feedback_noisy,
                                    rollout_generative, rollout_open_loop,
                                    rollout_open_loop_noisy)
 from ratilqr_tpu_torch.problems import (GenerativeProblem,
+                                        OptimalControlProblem,
                                         RiskSensitiveProblem, problem_device)
 from ratilqr_tpu_torch.solvers.ileqg import (ILEQGResult, make_batched_solver,
                                              solve, solve_bank, solve_value,
                                              solve_via_bank)
+from ratilqr_tpu_torch.solvers.ileqg import solve as ileqg_solve
 from ratilqr_tpu_torch.solvers.nelder_mead import NelderMeadSolver
 from ratilqr_tpu_torch.solvers.pets import PETSSolver
 from ratilqr_tpu_torch.solvers.ratilqr import RATiLQRSolver

@@ -1,11 +1,14 @@
 // One backward step of the risk-sensitive Riccati recursion, per thread.
 //
 // The algebra of ratilqr_tpu/ops/riccati_pallas.py:_riccati_kernel (and of
-// the plain ratilqr_tpu_torch/ops/riccati.py:_riccati_core), written once
-// for the kernels: riccati.cu runs dp_step over streamed blocks, step.cu
-// over blocks its tile model recomputes, and riccati_folded.cu runs
-// folded_step over the closed-loop fold (candidate.cu runs its few-lane
-// twin, small_team.cuh).  References: ileqg.jl:341-465.
+// the plain ratilqr_tpu_torch/ops/riccati.py:_riccati_core) for the
+// per-thread kernels: riccati.cu runs dp_step over streamed blocks at the
+// shapes neither of its team designs takes (m > 4, or n > 4 past a
+// 16-lane team), and riccati_folded.cu runs folded_step over the
+// closed-loop fold at n ≤ 4 and 16 ≤ n ≤ 32.  At n, m ≤ 4 kernels A, B and
+// C run the few-lane twins in small_team.cuh (rq::small::dp_step and
+// folded_step), in the same operation order.  References:
+// ileqg.jl:341-465.
 #pragma once
 
 #include "smallmat.cuh"

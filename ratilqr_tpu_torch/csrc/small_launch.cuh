@@ -1,6 +1,8 @@
-// The width rule of the few-lane kernels at n ≤ kUnrollMax, kernels B and
-// C (step.cu:step_kernel, candidate.cu:candidate_kernel): how many lanes
-// of a warp one solve takes, for a bank of B lanes on this card.
+// The width rule of the few-lane kernels at n ≤ kUnrollMax, kernels A, B
+// and C (riccati.cu:riccati_small_kernel, step.cu:step_kernel,
+// candidate.cu:candidate_kernel): how many lanes of a warp one solve
+// takes, for a bank of B lanes on this card, and (kernel A) whether its
+// teams read each step's streamed blocks into registers or stage them.
 //
 // K = 4 while that keeps the bank within kSmallFill = 512 threads an SM,
 // so up to B = 16,896 on an H100's 132 SMs; 1 above.  A narrow bank so
@@ -10,6 +12,17 @@
 // factor and the risk term, cost more issue slots than the extra warps
 // save (python -m ratilqr_tpu_torch.team_sweep candidate and step; PERF.md
 // §6).
+//
+// Kernel A streams its step's blocks (40-85 words a lane) where B and C
+// recompute them.  At K = 4 its teams read them from device memory into
+// registers while the bank stays within kDirectFill = 256 threads an SM
+// (up to B = 8,448 on 132 SMs): there the SMs hold few warps, one solve's
+// chain is the time, and reading into registers was 1.1-1.5x faster than
+// staging (B = 1 to 8,192), which adds a block barrier and shared-memory
+// loads to every step's chain.  Above, they stage them in shared memory:
+// a thread holds 60-96 registers (f32) instead of 140-168, and at 16,384
+// lanes staging was 1.4x faster (python -m ratilqr_tpu_torch.team_sweep
+// riccati; PERF.md §6).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,6 +54,7 @@ namespace rq {
 namespace small {
 
 constexpr int kSmallFill = 512;
+constexpr int kDirectFill = 256;
 
 __host__ __device__ constexpr int small_threads(int K) {
   return K > 1 ? RQ_SMALL_THREADS : RQ_WIDE_THREADS;
@@ -60,6 +74,13 @@ inline int sm_count() {
 inline int small_lanes(int B, int sms) {
   if (RQ_SMALL_LANES > 0) return RQ_SMALL_LANES;
   return int64_t(B) * 4 <= int64_t(sms) * kSmallFill ? 4 : 1;
+}
+
+// Whether kernel A's teams of K lanes read their steps into registers at
+// width B on `sms` SMs: always at K = 1, and at K > 1 while the bank stays
+// within kDirectFill threads an SM.
+inline bool small_direct(int B, int sms, int K) {
+  return K == 1 || int64_t(B) * K <= int64_t(sms) * kDirectFill;
 }
 
 // f(k) for the K that small_lanes picked, as a compile-time constant:

@@ -2,19 +2,20 @@
 // at n ≤ kUnrollMax, every matrix in registers.
 //
 // The few-lane counterpart of dp_step.cuh's folded_step (kernel C) and of
-// its optimizing dp_step (kernel B), as team_mat.cuh is the 16-lane one at
-// n=12: the same formulas in the same operation order, so a team and one
-// thread differ only by fused multiply-adds, and every K gives the same
-// bits.  Every lane of a team holds the carry (s, s⃗, S), the model blocks
-// or the fold, M's Cholesky factor and (dp_step) H, H's factor and the
-// gains in full; what is split is the work with long dependent chains or
-// many products.  Lane r owns the rows and columns i = r, r + K, r + 2K,
-// ... (slot i / K of its row arrays):
+// its dp_step (kernel B: optimizing; kernel A: optimizing and evaluating),
+// as team_mat.cuh is the 16-lane one at n=12: the same formulas in the
+// same operation order, so a team and one thread differ only by fused
+// multiply-adds, and every K gives the same bits.  Every lane of a team
+// holds the carry (s, s⃗, S), the model blocks or the fold, M's Cholesky
+// factor and (dp_step) g, G, H, H's factor and the gains in full; what is
+// split is the work with long dependent chains or many products.  Lane r
+// owns the rows and columns i = r, r + K, r + 2K, ... (slot i / K of its
+// row arrays):
 //   - the N + 1 solves with M's factor: column i of M⁻¹S (which is row i
 //     of D = I + θ(M⁻¹S)ᵀ) and, as column N, M⁻¹s⃗;
 //   - row i of DS, AᵀDS and AᵀDS·A, and entry i of Ds⃗, AᵀDs⃗ and s⃗;
-//   - (dp_step) the N + 1 solves with H's factor: column i of
-//     L = −H⁻¹G and, as column N, dl = −H⁻¹g; and row i of
+//   - (dp_step) the N + 1 solves with H's factor (optimizing only): column
+//     i of L = −H⁻¹G and, as column N, dl = −H⁻¹g; and row i of
 //     LᵀHL + LᵀG + GᵀL.
 // After each split phase the rows go round by __shfl_sync(…, width = K)
 // (gather_rows), so every lane holds the whole result again; at K = 1 the
@@ -162,8 +163,12 @@ __device__ __forceinline__ bool m_factor(int lane, T theta, const T (&Wi)[N][N],
   return rq::chol_ok<T, N>(Mc);
 }
 
-// The risk term added to s (dp_step.cuh:risk_term), on every lane.
-template <typename T, int N>
+// The risk term added to s (dp_step.cuh:risk_term), on every lane.  With
+// ROUNDED, its θ/2 s⃗ᵀM⁻¹s⃗ − (logdet W + logdet M)/(2θ) rounds the
+// product and the difference on their own: as written, nvcc fused the two
+// into one multiply-add or not depending on the code around the step
+// (kernel A's lanes a solve and its staging form), which changed the bits.
+template <typename T, int N, bool ROUNDED = false>
 __device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)[N][N],
                                        const T (&sv)[N], const T (&Minv_sv)[N],
                                        const T (&Mc)[N][N], T ldW) {
@@ -173,9 +178,15 @@ __device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)
 #pragma unroll
     for (int j = 0; j < N; ++j) tr = tr + W[i][j] * S[j][i];
   const T theta_safe = (theta == T(0)) ? T(1) : theta;
-  const T sens = T(0.5) * theta * rq::dot<T, N>(sv, Minv_sv) -
-                 (ldW + rq::cho_logdet<T, N>(Mc)) / (T(2) * theta_safe);
-  return (theta == T(0)) ? T(0.5) * tr : sens;
+  if constexpr (ROUNDED) {
+    const T sens = rq::sub_rn(rq::mul_rn(T(0.5) * theta, rq::dot<T, N>(sv, Minv_sv)),
+                              (ldW + rq::cho_logdet<T, N>(Mc)) / (T(2) * theta_safe));
+    return (theta == T(0)) ? T(0.5) * tr : sens;
+  } else {
+    const T sens = T(0.5) * theta * rq::dot<T, N>(sv, Minv_sv) -
+                   (ldW + rq::cho_logdet<T, N>(Mc)) / (T(2) * theta_safe);
+    return (theta == T(0)) ? T(0.5) * tr : sens;
+  }
 }
 
 // Row i of Q + AᵀDS·A into Sr and q⃗_i + (AᵀDs⃗)_i, the first terms of the
@@ -234,27 +245,32 @@ __device__ __forceinline__ void folded_step(int lane, T q, const T (&qv)[N], con
   s = s_new;
 }
 
-// Optimizing DP step at one time index, as dp_step.cuh:dp_step with OPT
-// (and its m_factor and risk_term): the carry (s, s⃗, S) holds time t+1 on
-// entry and time t on exit, on every lane.  Lane r's columns of [L | dl]
-// come out in LX (slot k: column c = r + K·k, dl at c = N, zeros past it);
-// every lane holds them all inside the step.  m_fail latches only if the
-// lane has not failed before; h_fail only if it has not failed before and
-// M did not fail at this step (dp_step.cuh:67-93, riccati.py:133-149).
+// Optimizing (OPT) or evaluating DP step at one time index, as
+// dp_step.cuh:dp_step (and its m_factor and risk_term): the carry (s, s⃗, S)
+// holds time t+1 on entry and time t on exit, on every lane.  OPT computes
+// the gains: lane r's columns of [L | dl] come out in LX (slot k: column
+// c = r + K·k, dl at c = N, zeros past it), and L and dl, gathered, on
+// every lane; otherwise L and dl are inputs (every lane holds them) and LX
+// is not touched.  g, G and H come out on every lane.  m_fail latches only
+// if the lane has not failed before; h_fail (OPT only) only if it has not
+// failed before and M did not fail at this step (dp_step.cuh:67-94,
+// riccati.py:133-149).  ROUNDED rounds the risk term's last product and
+// difference on their own (risk_term).
 //   1-3. as folded_step, from M's factor to DS and Ds⃗ on every lane;
 //   4. every lane: g = r + BᵀDs⃗, G = P + BᵀDS·A, H = sym(R + BᵀDS·B + μI)
-//      and H's factor;
-//   5. lane r: its columns of −H⁻¹[G | g]; gather L and dl;
+//      and (OPT) H's factor;
+//   5. (OPT) lane r: its columns of −H⁻¹[G | g]; gather L and dl;
 //   6. every lane: H dl, H L, the risk term and s;
 //   7. lane r: its rows of S = Q + AᵀDS·A + LᵀHL + LᵀG + GᵀL and s⃗ =
 //      q⃗ + AᵀDs⃗ + LᵀH dl + Lᵀg + Gᵀdl;
 //   8. gather S and s⃗; every lane: S ← sym(S).
-template <typename T, int N, int M, int K>
+template <typename T, int N, int M, int K, bool OPT, bool ROUNDED = false>
 __device__ __forceinline__ void dp_step(
     int lane, T q, const T (&qv)[N], const T (&Q)[N][N], const T (&r)[M], const T (&R)[M][M],
     const T (&P)[M][N], const T (&A)[N][N], const T (&Bm)[N][M], const T (&W)[N][N],
-    const T (&Wi)[N][N], T ldW, T theta, T mu, T (&LX)[kSlots<N + 1, K>][M], T& s, T (&sv)[N],
-    T (&S)[N][N], bool& m_fail, bool& h_fail) {
+    const T (&Wi)[N][N], T ldW, T theta, T mu, T (&LX)[kSlots<N + 1, K>][M], T (&L)[M][N],
+    T (&dl)[M], T (&g)[M], T (&G)[M][N], T (&H)[M][M], T& s, T (&sv)[N], T (&S)[N][N],
+    bool& m_fail, bool& h_fail) {
   constexpr int Rw = kSlots<N, K>, C = kSlots<N + 1, K>;
   constexpr int site = rq::kCarry;
   const bool failed = m_fail || h_fail;
@@ -262,7 +278,6 @@ __device__ __forceinline__ void dp_step(
   if (!m_factor<T, N, K>(lane, theta, Wi, S, sv, Mc, Minv_sv, DS, Dsv) && !failed)
     m_fail = true;
 
-  T g[M], G[M][N], H[M][M];
   {
     T tmpM[M], BtDS[M][N], tmpMN[M][N], tmpMM[M][M];
     rq::mtv<T, N, M, site>(Bm, Dsv, tmpM);
@@ -281,35 +296,37 @@ __device__ __forceinline__ void dp_step(
       for (int j = 0; j < M; ++j) H[i][j] = R[i][j] + tmpMM[i][j] + (i == j ? mu : T(0));
     rq::sym_inplace<T, M>(H);   // ileqg.jl:370-371
   }
-  T Hc[M][M];
-  rq::chol<T, M>(H, Hc);
-  if (!rq::chol_ok<T, M>(Hc) && !failed && !m_fail) h_fail = true;
+  if constexpr (OPT) {
+    T Hc[M][M];
+    rq::chol<T, M>(H, Hc);
+    if (!rq::chol_ok<T, M>(Hc) && !failed && !m_fail) h_fail = true;
 
-  // Lane r's solves: column c = r + K·k of −H⁻¹G (c < N) or −H⁻¹g (c = N),
-  // ileqg.jl:379-381.
+    // Lane r's solves: column c = r + K·k of −H⁻¹G (c < N) or −H⁻¹g
+    // (c = N), ileqg.jl:379-381.
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
-    const int c = lane + K * k;
-    T b[M], x[M];
+    for (int k = 0; k < C; ++k) {
+      const int c = lane + K * k;
+      T b[M], x[M];
 #pragma unroll
-    for (int i = 0; i < M; ++i) b[i] = c < N ? pick<T, N>(G[i], c) : g[i];
-    rq::cho_solve_vec<T, M, site>(Hc, b, x);
+      for (int i = 0; i < M; ++i) b[i] = c < N ? pick<T, N>(G[i], c) : g[i];
+      rq::cho_solve_vec<T, M, site>(Hc, b, x);
 #pragma unroll
-    for (int i = 0; i < M; ++i) LX[k][i] = c <= N ? -x[i] : T(0);
-  }
-  T L[M][N], dl[M];
+      for (int i = 0; i < M; ++i) LX[k][i] = c <= N ? -x[i] : T(0);
+    }
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
+    for (int i = 0; i < M; ++i) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) L[i][j] = from_lane<K>(LX[j / K][i], j % K);
-    dl[i] = from_lane<K>(LX[N / K][i], N % K);
+      for (int j = 0; j < N; ++j) L[i][j] = from_lane<K>(LX[j / K][i], j % K);
+      dl[i] = from_lane<K>(LX[N / K][i], N % K);
+    }
   }
 
   T Hdl[M], HL[M][N];
   rq::mv<T, M, M, site>(H, dl, Hdl);
   rq::mm<T, M, M, N, site>(H, L, HL);
   const T s_new = q + s + T(0.5) * rq::dot<T, M>(dl, Hdl) + rq::dot<T, M>(dl, g) +
-                  risk_term<T, N>(theta, W, S, sv, Minv_sv, Mc, ldW);   // ileqg.jl:383-387
+                  risk_term<T, N, ROUNDED>(theta, W, S, sv, Minv_sv, Mc,
+                                           ldW);   // ileqg.jl:383-387
 
   // Row i of S = Q + AᵀDS·A + LᵀHL + LᵀG + GᵀL (ileqg.jl:390) and s⃗_i =
   // q⃗_i + (AᵀDs⃗)_i + (LᵀH dl)_i + (Lᵀg)_i + (Gᵀdl)_i (ileqg.jl:389).
@@ -345,6 +362,19 @@ __device__ __forceinline__ void dp_step(
   gather<T, N, K>(svr, sv);
   rq::sym_inplace<T, N>(S);   // ileqg.jl:391
   s = s_new;
+}
+
+// The optimizing step with only lane r's columns of [L | dl] out (LX), as
+// kernel B stores them.
+template <typename T, int N, int M, int K>
+__device__ __forceinline__ void dp_step(
+    int lane, T q, const T (&qv)[N], const T (&Q)[N][N], const T (&r)[M], const T (&R)[M][M],
+    const T (&P)[M][N], const T (&A)[N][N], const T (&Bm)[N][M], const T (&W)[N][N],
+    const T (&Wi)[N][N], T ldW, T theta, T mu, T (&LX)[kSlots<N + 1, K>][M], T& s, T (&sv)[N],
+    T (&S)[N][N], bool& m_fail, bool& h_fail) {
+  T L[M][N], dl[M], g[M], G[M][N], H[M][M];
+  dp_step<T, N, M, K, true>(lane, q, qv, Q, r, R, P, A, Bm, W, Wi, ldW, theta, mu, LX, L, dl, g,
+                            G, H, s, sv, S, m_fail, h_fail);
 }
 
 }  // namespace small

@@ -15,13 +15,15 @@ are compared on the lanes that did not fail, with the tolerances below:
     the same θ (see :func:`_compare`);
   - float64: rtol 1e-10 (atol 1e-10 on near-zero entries).
 
-Each check returns (largest kernel-vs-plain difference, largest float32
-error of the plain version against float64).
+Each check returns an :class:`Agreement`: the largest kernel-vs-plain
+difference, the largest float32 error of the plain version against
+float64, and the largest ratio of a difference to what the tolerance
+allowed there.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -199,13 +201,21 @@ def bank_inputs(model: str, T: int, B: int, dtype, device, seed: int = 0):
     return prob, x0, l, L, theta, mu, noise_model(prob, T, dtype, device)
 
 
-def _close(name: str, got, want, lanes, rtol: float, atol) -> float:
+class Agreement(NamedTuple):
+    """What one kernel-vs-plain check found."""
+    err: float         # largest |kernel − plain|
+    plain_err: float   # largest float32 error of the plain version vs f64
+    ratio: float       # largest |kernel − plain| / allowed
+
+
+def _close(name: str, got, want, lanes, rtol: float, atol
+           ) -> Tuple[float, float]:
     """``|got − want| ≤ atol + rtol·|want|`` elementwise on ``lanes``, with
-    ``atol`` per lane ``(B,)``; returns max |got − want| there.  A NaN on
-    either side is a mismatch."""
+    ``atol`` per lane ``(B,)``; returns (max |got − want|, max |got −
+    want| / allowed) there.  A NaN on either side is a mismatch."""
     got, want = got[lanes].double(), want[lanes].double()
     if not got.numel():
-        return 0.0
+        return 0.0, 0.0
     atol = atol[lanes].reshape((-1,) + (1,) * (got.dim() - 1))
     diff = (got - want).abs()
     allowed = atol + rtol * want.abs()
@@ -217,7 +227,8 @@ def _close(name: str, got, want, lanes, rtol: float, atol) -> float:
             f"{name}: {int(bad.sum())} of {bad.numel()} elements differ; "
             f"worst |kernel − plain| {float(diff.flatten()[i]):.3e} against "
             f"{float(allowed.flatten()[i]):.3e} allowed")
-    return float(diff.max())
+    ratio = torch.where(diff > 0, diff / allowed, torch.zeros_like(diff))
+    return float(diff.max()), float(ratio.max())
 
 
 def _flags(name: str, got, want) -> None:
@@ -245,7 +256,7 @@ def _drift_atol(want, ref, lanes, theta, atol: float):
     return tol, float(err.max())
 
 
-def _compare(got, want, ref, theta, fields, dtype) -> Tuple[float, float]:
+def _compare(got, want, ref, theta, fields, dtype) -> Agreement:
     """Kernel output ``got`` against the plain output ``want``: fail flags
     equal on every lane, each ``(name, kind)`` field within ``TOL[dtype]
     [kind]`` on the lanes that did not fail.
@@ -260,15 +271,14 @@ def _compare(got, want, ref, theta, fields, dtype) -> Tuple[float, float]:
     conditioning allows.  So with ``ref`` each lane's absolute tolerance is
     at least ``F32_DRIFT_FACTOR`` times the plain version's own largest
     float32 error against float64 among the lanes of the same θ
-    (:func:`_drift_atol`).  Returns (largest kernel-vs-plain difference,
-    largest plain float32 error)."""
+    (:func:`_drift_atol`).  Returns the :class:`Agreement`."""
     for flag in ("m_fail", "h_fail"):
         if hasattr(want, flag):
             _flags(flag, getattr(got, flag), getattr(want, flag))
     ok = ~_failed(want)
     if ref is not None:
         ok = ok & ~_failed(ref)
-    err = plain_err = 0.0
+    err = plain_err = ratio = 0.0
     for name, kind in fields:
         lanes = torch.ones_like(ok) if kind == "traj" else ok
         rtol, atol = TOL[dtype][kind]["rtol"], TOL[dtype][kind]["atol"]
@@ -279,9 +289,9 @@ def _compare(got, want, ref, theta, fields, dtype) -> Tuple[float, float]:
             tol, drift = _drift_atol(want_f, getattr(ref, name), lanes,
                                      theta, atol)
             plain_err = max(plain_err, drift)
-        err = max(err, _close(name, getattr(got, name), want_f, lanes, rtol,
-                              tol))
-    return err, plain_err
+        e, r = _close(name, getattr(got, name), want_f, lanes, rtol, tol)
+        err, ratio = max(err, e), max(ratio, r)
+    return Agreement(err, plain_err, ratio)
 
 
 def _f64(x):
@@ -365,7 +375,7 @@ def _riccati_fields(optimizing: bool, slim: bool):
 def check_riccati(model: str, T: int, B: int, dtype, device,
                   optimizing: bool, slim: bool, shared_w: bool,
                   has_dl: bool, kernel: Callable = riccati_bank
-                  ) -> Tuple[float, float]:
+                  ) -> Agreement:
     """Kernel A (``kernel``, of :func:`riccati_bank`'s signature) against
     :func:`riccati_bank_plain` in one variant; every θ = 1e6 lane must
     latch m_fail, and on an h_fail fixture the optimizing pass every
@@ -385,7 +395,7 @@ def check_riccati(model: str, T: int, B: int, dtype, device,
 
 
 def check_riccati_wide(model: str, T: int, B: int, dtype, device
-                       ) -> Tuple[float, float]:
+                       ) -> Agreement:
     """Kernel A's slim optimizing pass on a bank of ``B`` lanes that
     repeats the fixture's first ``TILE_BASE`` (as the timings do), against
     the plain version on those lanes: lane i of the wide bank against
@@ -433,7 +443,7 @@ def step_inputs(model: str, T: int, B: int, dtype, device):
 
 
 def check_step(model: str, T: int, B: int, dtype, device,
-               kernel: Callable = step_optimize_bank) -> Tuple[float, float]:
+               kernel: Callable = step_optimize_bank) -> Agreement:
     """Kernel B (``kernel``, of :func:`step_optimize_bank`'s signature)
     against :func:`step_optimize_bank_plain`; every θ = 1e6 lane must latch
     m_fail, and on an h_fail fixture (:func:`h_fail_fixture`) every
@@ -463,7 +473,7 @@ def candidate_inputs(model: str, T: int, B: int, dtype, device, seed=2):
 
 
 def check_candidate(model: str, T: int, B: int, dtype, device
-                    ) -> Tuple[float, float]:
+                    ) -> Agreement:
     """Kernel C against :func:`candidate_bank_plain`; every θ = 1e6 lane
     must latch m_fail."""
     args = candidate_inputs(model, T, B, dtype, device)
@@ -496,7 +506,7 @@ def folded_inputs(model: str, T: int, B: int, dtype, device,
 def check_riccati_folded(model: str, T: int, B: int, dtype, device,
                          shared_w: bool,
                          kernel: Callable = riccati_bank_folded
-                         ) -> Tuple[float, float]:
+                         ) -> Agreement:
     """Kernel D (``kernel``, of :func:`riccati_bank_folded`'s signature)
     against :func:`riccati_bank_folded_plain`; every θ = 1e6 lane must
     latch m_fail."""
@@ -514,7 +524,7 @@ def check_riccati_folded(model: str, T: int, B: int, dtype, device,
 
 
 def check_riccati_folded_wide(model: str, T: int, B: int, dtype, device,
-                              shared_w: bool) -> Tuple[float, float]:
+                              shared_w: bool) -> Agreement:
     """Kernel D on a bank of ``B`` lanes that repeats the fixture's first
     ``TILE_BASE`` (as the timings do), against the plain version on those
     lanes: lane i of the wide bank against lane i mod ``TILE_BASE``.  The
@@ -601,7 +611,9 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
     """``{kernel: (wrapper, layout, launch, plain)}`` callables at (T, B) on
     ``model``'s fixture: ``wrapper()`` and ``plain()`` run the kernel's
     wrapper and its plain version, ``launch(layout())`` the kernel alone
-    on inputs already in its layout.  Inputs are seeded at up to
+    on inputs already in its layout.  Kernel A is its slim optimizing pass
+    (``riccati``) or its slim evaluating pass with no dl stream
+    (``riccati_evaluating``, as the bank's line search runs it).  Inputs are seeded at up to
     ``TILE_BASE`` lanes and repeated beyond that; each case builds its own
     when it is reached, so one case's inputs are freed before the next."""
     base = min(B, TILE_BASE)
@@ -616,6 +628,17 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
                 lambda: riccati_layout(ap, th, mu),
                 lambda a: launch_riccati(*a, slim=True),
                 lambda: riccati_bank_plain(ap, th, mu, slim=True))
+
+    def riccati_evaluating():
+        prob, x0, l, L, theta, mu, noise = bank_inputs(model, T, base,
+                                                       dtype, device)
+        x, A, Bm = rollout_open_loop_with_jac(prob, x0, l)
+        ap = _widen(approximate_model(prob, l, x, A, Bm, noise), B)
+        th, mu, L = _wide(theta, B), _wide(mu, B), _wide(L, B)
+        return (lambda: riccati_bank(ap, th, mu, L, slim=True),
+                lambda: riccati_layout(ap, th, mu, L),
+                lambda a: launch_riccati(*a, slim=True),
+                lambda: riccati_bank_plain(ap, th, mu, L, slim=True))
 
     def step():
         prob, *lanes, noise = step_inputs(model, T, base, dtype, device)
@@ -640,34 +663,38 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
                 lambda a: launch_folded(*a),
                 lambda: riccati_bank_folded_plain(fa, th))
 
-    return {"riccati": riccati, "step": step, "candidate": candidate,
+    return {"riccati": riccati, "riccati_evaluating": riccati_evaluating,
+            "step": step, "candidate": candidate,
             "riccati_folded": riccati_folded}
 
 
 def kernel_timings(model: str, T: int, B: int, dtype, device,
-                   kernels=("riccati", "step", "candidate", "riccati_folded")
+                   kernels=("riccati", "step", "candidate", "riccati_folded"),
+                   plain: bool = True
                    ) -> Dict[str, Tuple[float, float, Optional[float]]]:
     """``{kernel: (wrapper ms, launch ms, plain ms)}`` on ``model`` at
     (T, B), by CUDA events: the wrapper with its layout copies and the
     launch alone on inputs already in the kernel's layout, median of 5,
-    and the plain version, one run (None where it runs out of device
-    memory), each after a warm-up run.  The plain version is host-bound
+    and with ``plain`` the plain version, one run (None without it, or
+    where it runs out of device memory), each after a warm-up run.  The plain version is host-bound
     and varies ±2x between runs, so more runs would buy no precision.
     Kernel A is timed as the slim optimizing pass."""
     out = {}
     cases = timing_cases(model, T, B, dtype, device)
     for kernel in kernels:
-        wrapper, layout, launch, plain = cases[kernel]()
+        wrapper, layout, launch, plain_fn = cases[kernel]()
         args = layout()
         launch_ms = time_ms(lambda: launch(args))
         del args
         wrapper_ms = time_ms(wrapper)
-        try:
-            plain_ms = time_ms(plain, reps=1)
-        except torch.cuda.OutOfMemoryError:
-            plain_ms = None
+        plain_ms = None
+        if plain:
+            try:
+                plain_ms = time_ms(plain_fn, reps=1)
+            except torch.cuda.OutOfMemoryError:
+                pass
         out[kernel] = (wrapper_ms, launch_ms, plain_ms)
-        del wrapper, layout, launch, plain
+        del wrapper, layout, launch, plain_fn
         torch.cuda.empty_cache()
     return out
 
@@ -697,14 +724,15 @@ def _risk_ops(n: int) -> int:
     return 2 * n * n + 2 * n * n + (2 * n - 1) + (2 * n + 1) + 6
 
 
-def dp_step_ops(n: int, m: int) -> int:
-    """Arithmetic operations of one optimizing ``dp_step`` (dp_step.cuh),
-    a multiply-add counted as 2."""
+def dp_step_ops(n: int, m: int, optimizing: bool = True) -> int:
+    """Arithmetic operations of one optimizing or evaluating ``dp_step``
+    (dp_step.cuh), a multiply-add counted as 2."""
     ops = _m_factor_ops(n)
     ops += _mm(n, n, n) + _mm(n, n, 1) + _mm(m, n, 1) + m        # DS, Ds⃗, g
     ops += 2 * _mm(m, n, n) + m * n                              # BᵀDS, G
     ops += _mm(m, n, m) + 2 * m * m + m * (m - 1)                # H
-    ops += _chol(m) + 2 * m * m * (n + 1) + m * n + m            # L, dl
+    if optimizing:
+        ops += _chol(m) + 2 * m * m * (n + 1) + m * n + m        # L, dl
     ops += _mm(m, m, 1) + 2 * (2 * m - 1) + 5 + _risk_ops(n)     # s
     ops += _mm(n, n, 1) + 3 * _mm(n, m, 1) + 4 * n               # s⃗
     ops += (2 * _mm(n, n, n) + _mm(m, m, n) + 2 * _mm(n, m, n)   # S
@@ -731,14 +759,17 @@ def kernel_work(kernel: str, n: int, m: int, T: int, B: int, dtype
     input read once and each output written once (a shared noise model
     once for the bank), and the DP algebra's arithmetic (the model's own
     dynamics and cost are not counted, so the bound stays a lower one).
-    Kernel A is the slim optimizing pass."""
+    Kernel A is its slim optimizing pass (``riccati``: L and dl out) or its
+    slim evaluating pass with no dl stream (``riccati_evaluating``: L
+    in)."""
     w = torch.empty((), dtype=dtype).element_size()
     noise = T * (2 * n * n + 1)
-    if kernel == "riccati":
+    if kernel in ("riccati", "riccati_evaluating"):
+        optimizing = kernel == "riccati"
         lane = (T * (1 + n + 2 * n * n + m + m * m + 2 * m * n)   # in
                 + 1 + n + n * n + 2                             # term, θ, μ
-                + T * (m * n + m) + 1)                          # L, dl, value
-        ops = dp_step_ops(n, m)
+                + T * (m * n + (m if optimizing else 0)) + 1)   # L, dl, value
+        ops = dp_step_ops(n, m, optimizing)
     elif kernel == "step":
         lane = (n + T * m + 2                                   # x0, l, θ, μ
                 + (T + 1) * n + T * (m * n + m) + 1)            # x, L, dl, v
@@ -751,7 +782,7 @@ def kernel_work(kernel: str, n: int, m: int, T: int, B: int, dtype
         ops = folded_step_ops(n)
     else:
         raise ValueError(kernel)
-    flags = 2 if kernel in ("riccati", "step") else 1   # bool fail flags
+    flags = 1 if kernel in ("candidate", "riccati_folded") else 2   # flags
     return float(B * (lane * w + flags) + noise * w), float(B * T * ops)
 
 

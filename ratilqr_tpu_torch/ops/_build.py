@@ -32,7 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -209,7 +209,7 @@ _I = ctypes.c_int
 _PARAMS = ctypes.POINTER(ctypes.c_double)   # host array of MAX_PARAMS
 _SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
     "ratilqr_riccati": [_I] * 8 + [_P] * 18 + [_P] * 11 + [_P],
-    "ratilqr_riccati_smem": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ratilqr_riccati_smem": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_step": [_I] * 3 + [_PARAMS] + [_P] * 7 + [_P] * 6 + [_P],
     "ratilqr_step_smem": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
@@ -301,19 +301,25 @@ def first_widths(kernel: str, model_id: int, dtype, B_max: int = 1 << 30
                  ) -> Dict[int, int]:
     """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
     it}`` of kernel ``kernel`` (``"step"`` or ``"candidate"``) on a device
-    model on the current card, read from :func:`block_shared_memory` (the
-    launch takes fewer lanes a solve as the bank widens)."""
-    def lanes(B):
-        return block_shared_memory(kernel, model_id, dtype, B)[2]
+    model on the current card, read from :func:`block_shared_memory`."""
+    return first_widths_by(
+        lambda B: block_shared_memory(kernel, model_id, dtype, B)[2], B_max)
 
+
+def first_widths_by(key: Callable[[int], object], B_max: int = 1 << 30
+                    ) -> dict:
+    """``{k: the narrowest width B ≤ B_max at which key(B) == k}`` for a
+    launch property ``key(B)`` that takes each of its values on one band of
+    widths (the lanes a solve fall, and a form changes once, as the bank
+    widens)."""
     widths, B = {}, 1
     while B <= B_max:
-        K = lanes(B)
-        widths[K] = B
-        lo, hi = B, B_max + 1   # lanes(lo) == K; hi: the first to take fewer
+        k = key(B)
+        widths[k] = B
+        lo, hi = B, B_max + 1   # key(lo) == k; hi: the first to differ
         while hi - lo > 1:
             mid = (lo + hi) // 2
-            lo, hi = (lo, mid) if lanes(mid) < K else (mid, hi)
+            lo, hi = (lo, mid) if key(mid) != k else (mid, hi)
         B = hi
     return widths
 

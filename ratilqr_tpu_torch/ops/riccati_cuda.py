@@ -19,16 +19,18 @@ shape: the shipped library holds the shipped models' shapes (``SHAPES``,
 first use (``_build.shape_library``).  Beyond ``MAX_DIM`` they raise
 before any build.
 
-Kernel A runs one solve per team of 16 lanes, its working set in shared
-memory, at the shapes a team takes (4 < n, m ≤ 4, n + m ≤ 16: the
-quadrotor, and e.g. (6, 3)), and one solve per thread at the others
+Kernel A runs one solve per team of K = 4 or 1 lanes of a warp at
+n, m ≤ 4 (the unicycle, LQR, the cartpole; K picked from the width), one
+per team of 16 lanes, its working set in shared memory, at the shapes a
+16-lane team takes (4 < n, m ≤ 4, n + m ≤ 16: the quadrotor, and e.g.
+(6, 3)), and one solve per thread at the others
 (:func:`block_shared_memory` says which).  Kernel D does the same at
 4 < n < 16 (the quadrotor, and e.g. n=6; :func:`folded_block_shared_memory`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -168,19 +170,47 @@ def _entry(name: str, dtype, n: int, m: int):
                         name)
 
 
-def block_shared_memory(n: int, m: int, dtype, optimizing: bool = True,
-                        w_shared: bool = True) -> Tuple[int, int, int]:
-    """``(bytes, teams, lanes)`` of kernel A at (n, m) in one variant: the
-    dynamic shared memory a block takes (0 where the kernel runs one solve
-    per thread), its teams per block and lanes per team.  Builds the
-    library that holds (n, m) if needed."""
+def block_shared_memory(n: int, m: int, dtype, B: int = 1,
+                        optimizing: bool = True, w_shared: bool = True
+                        ) -> Tuple[int, int, int]:
+    """``(bytes, solves, lanes)`` of kernel A's launch at (n, m) for a bank
+    of ``B`` lanes on the current card in one variant: the dynamic shared
+    memory a block takes, its solves (teams) a block and lanes a solve
+    (n, m ≤ 4: 4 or 1, picked from B and the SM count by
+    ``csrc/small_launch.cuh``'s rule, with shared memory where the teams
+    stage their steps; the team shapes: 16; 1 at the shapes solved one per
+    thread).  Builds the library that holds (n, m) if needed."""
     _check_dims(KERNEL, n, m)
     teams, lanes = ctypes.c_int(), ctypes.c_int()
     nbytes = _entry(f"{KERNEL}_smem", dtype, n, m)(
-        n, m, int(optimizing), int(w_shared), ctypes.byref(teams),
+        n, m, B, int(optimizing), int(w_shared), ctypes.byref(teams),
         ctypes.byref(lanes))
     _build.check(nbytes if nbytes < 0 else 0, KERNEL)
     return nbytes, teams.value, lanes.value
+
+
+def first_widths(n: int, m: int, dtype, optimizing: bool = True,
+                 w_shared: bool = True, B_max: int = 1 << 30
+                 ) -> Dict[int, int]:
+    """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
+    it}`` of kernel A at (n, m) on the current card
+    (:func:`~ratilqr_tpu_torch.ops._build.first_widths_by`)."""
+    return _build.first_widths_by(lambda B: block_shared_memory(
+        n, m, dtype, B, optimizing, w_shared)[2], B_max)
+
+
+def launch_bands(n: int, m: int, dtype, optimizing: bool = True,
+                 w_shared: bool = True, B_max: int = 1 << 30) -> dict:
+    """``{(lanes a solve, staged): the narrowest width B ≤ B_max whose
+    launch takes it}`` of kernel A at (n, m) on the current card: at
+    n, m ≤ 4 whether its few-lane teams stage each step in shared memory
+    (a block takes shared memory) or read it into registers, as the bank
+    widens."""
+    def key(B):
+        nbytes, _, lanes = block_shared_memory(n, m, dtype, B, optimizing,
+                                               w_shared)
+        return lanes, nbytes > 0
+    return _build.first_widths_by(key, B_max)
 
 
 def launch_riccati(ins, shape, slim: bool, entry=None):
@@ -215,7 +245,7 @@ def launch_riccati(ins, shape, slim: bool, entry=None):
                     int(has_dl), *map(_build.ptr, ins),
                     *map(_build.ptr, outs), _build.stream_of(value))
     _build.check(rc, KERNEL, "" if rc <= 0 else (
-        f"{block_shared_memory(n, m, dtype, optimizing, w_shared)[0]} B of "
+        f"{block_shared_memory(n, m, dtype, Bn, optimizing, w_shared)[0]} B of "
         "shared memory a block"))
     _build.launch_counts[KERNEL] += 1
 

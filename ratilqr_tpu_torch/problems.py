@@ -20,8 +20,15 @@ from typing import Callable, Optional
 import torch
 
 
+class OptimalControlProblem:
+    """Abstract base of the optimal control problems — counterpart of
+    :class:`ratilqr_tpu.problems.OptimalControlProblem` and the reference's
+    ``abstract type OptimalControlProblem``
+    (``optimal_control_problems.jl:12``)."""
+
+
 @dataclasses.dataclass(frozen=True)
-class RiskSensitiveProblem:
+class RiskSensitiveProblem(OptimalControlProblem):
     """Finite-horizon risk-sensitive optimal control problem
     (``optimal_control_problems.jl:67-73``).
 
@@ -56,7 +63,7 @@ class RiskSensitiveProblem:
 
 
 @dataclasses.dataclass(frozen=True)
-class GenerativeProblem:
+class GenerativeProblem(OptimalControlProblem):
     """Finite-horizon generative stochastic optimal control problem
     (``optimal_control_problems.jl:126-131``), counterpart of
     :class:`ratilqr_tpu.problems.GenerativeProblem`.

@@ -1,10 +1,12 @@
 """Time the one-solve-per-team design of kernel C (``candidate``), B
 (``step``), A (``riccati``, its slim optimizing pass) or D
 (``riccati_folded``, shared noise model) in other team shapes, and kernel
-A's and D's two staging forms; for kernel C also its n ≤ 4 design in other
-team widths, block sizes and staging forms, and at the main path's widths.
+A's and D's two staging forms; for kernels C, B and A also their n ≤ 4
+design in other team widths, block sizes and staging forms, and at the
+main paths' widths.
 
-Builds ``csrc/<kernel>.cu`` once per variant and working type with
+Builds ``csrc/<kernel>.cu`` (kernel A: its (12, 4) alone,
+``-DRQ_SHAPE_N/M``) once per variant and working type with
 ``-DRQ_TEAM_LANES`` (lanes per team) and ``-DRQ_TEAMS`` (teams per
 block), and for kernels A and D ``-DRQ_STAGE_BUFFERS`` (1: each step's
 streamed blocks staged synchronously; 2: double-buffered, the next step's
@@ -17,27 +19,34 @@ in reverse, and checks that each gives the shipped kernel's outputs
 (kernels C and D: value; kernel B: x, value, L, dl; kernel A: value, L,
 dl) and fail flags bit for bit.
 
-Kernels C and B at n ≤ 4 (``candidate``, ``step``; float32): each
-``SMALL_VARIANTS`` (C) or ``STEP_VARIANTS`` (B) entry — lanes a solve K of
-1 or 4, threads a block and, for C, staging by cp.async on or off where
-K > 1 — builds with ``-DRQ_SMALL_LANES``, ``-DRQ_SMALL_THREADS`` (and
-``-DRQ_WIDE_THREADS``, the threads at K = 1) and ``-DRQ_SMALL_STAGE``, as
-do the flag check's builds below; the sweep prints each one's ptxas
-report and, where the toolkit has ``cuobjdump``, the count of each kind
-of load, store, shuffle and barrier in its SASS; it times each (the
-variants and the flag check's builds) at ``SMALL_CELLS`` / ``STEP_CELLS`` (the
-unicycle T=30 at B=1 and 942, B's also at RAT iLQR's T=100, B=10, the
-unicycle T=100 and the cartpole T=50 at B=16,384 and 262,144) in two
-passes and checks each against the shipped build (whose launch picks K)
-bit for bit.  Then it times the shipped launch at ``WIDTH_CELLS`` /
-``STEP_WIDTH_CELLS`` (the unicycle T=30 and T=100 and the cartpole T=50,
-each at B = 1, 256, 640, 942, 16,384, 32,768, 65,536 and 262,144 for C,
-and 1, 10, 256, 942, 16,384, 32,768 and 262,144 for B) with the K it
-picks.  ``--baseline DIR`` also builds ``DIR/<kernel>.cu`` (the csrc
-directory of another checkout, e.g. the parent commit's) and times it
-beside the shipped build at every width cell, in turns (baseline,
-shipped, shipped, baseline), with its largest difference from the
-shipped values and whether its fail flags are equal.  Last, at
+Kernels C, B and A at n ≤ 4 (``candidate``, ``step``, ``riccati``;
+float32): each ``SMALL_VARIANTS`` (C), ``STEP_VARIANTS`` (B) or
+``RICCATI_SMALL_VARIANTS`` (A) entry — lanes a solve K of 1 or 4, threads
+a block and, for C, staging by cp.async on or off where K > 1, for A how
+a team gets each step's blocks (read from device memory into registers
+or staged by cp.async) — builds with ``-DRQ_SMALL_LANES``,
+``-DRQ_SMALL_THREADS`` (and ``-DRQ_WIDE_THREADS``, the threads at K = 1),
+``-DRQ_SMALL_STAGE`` or ``-DRQ_STEP_FORM``, as do the flag check's
+builds below; the sweep prints each one's ptxas report and,
+where the toolkit has ``cuobjdump``, the count of each kind of load,
+store, shuffle and barrier in its SASS; it times each (the variants and
+the flag check's builds) at ``SMALL_CELLS`` / ``STEP_CELLS`` /
+``RICCATI_CELLS`` (the unicycle T=30 at B=1 and 942, B's also at RAT
+iLQR's T=100, B=10, A's at T=100, B=8,192, the unicycle T=100 and the
+cartpole T=50 at B=16,384 and 262,144) in two passes and checks each
+against the shipped build (whose launch picks K) bit for bit; kernel A
+in both slim passes, optimizing and evaluating (``PASSES``).  Then it
+times the shipped launch at ``WIDTH_CELLS`` / ``STEP_WIDTH_CELLS`` /
+``RICCATI_WIDTH_CELLS`` (the unicycle T=30 and T=100 and the cartpole
+T=50, each at B = 1, 256, 640, 942, 16,384, 32,768, 65,536 and 262,144
+for C, 1, 10, 256, 942, 16,384, 32,768 and 262,144 for B, and for A the
+paths' widths and the edges of its bands, ``WIDTHS_A``) with the K (and
+form) it picks.  ``--baseline DIR`` also builds ``DIR/<kernel>.cu`` (the
+csrc directory of another checkout, e.g. the parent commit's) and times
+it beside the shipped build at every width cell, in turns (baseline,
+shipped, shipped, baseline, ``TURNS`` times, with the medians), with its
+largest difference from the shipped values and whether its fail flags
+are equal.  Last, at
 ``FLAG_CASE`` (the cartpole fixture on which the float32 fail flags
 disagreed with the plain version before the contraction policy of
 ``csrc/smallmat.cuh``), it lists the lanes whose float32 fail flags
@@ -49,12 +58,12 @@ update), the baseline and the plain version.
 ``policy`` builds every kernel with the contraction policy off and times
 each beside the shipped build at ``POLICY_CELLS`` (``chip_smoke.py``
 phase 9's cells), in turns; ``flags [--baseline DIR]`` runs the flag
-check of kernels C and B alone.
+check of kernels C, B and A alone.
 
 Run on a machine with a CUDA card, from the repository root:
 ``python -m ratilqr_tpu_torch.team_sweep [candidate [--baseline DIR]|
-step [--baseline DIR]|riccati|riccati_folded|policy|flags [--baseline
-DIR]]`` (kernel C without an argument).
+step [--baseline DIR]|riccati [--baseline DIR]|riccati_folded|policy|
+flags [--baseline DIR]]`` (kernel C without an argument).
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ import concurrent.futures
 import ctypes
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -73,6 +83,7 @@ import torch
 from ratilqr_tpu_torch import kernel_check
 from ratilqr_tpu_torch.ops import (_build, candidate_cuda, riccati_cuda,
                                    step_cuda, tile_model)
+from ratilqr_tpu_torch.ops.approx import Approximation
 
 # (lanes per team, teams per block); the first is shipped.
 VARIANTS = ((16, 8), (16, 4), (16, 16), (32, 8), (32, 4))
@@ -88,9 +99,9 @@ LAUNCHES = {"candidate": candidate_cuda.launch_candidate,
                 riccati_cuda.launch_riccati(ins, shape, True, entry),
             "riccati_folded": riccati_cuda.launch_folded}
 # Arguments of each kernel's shared-memory query on the quadrotor (kernel
-# A: its slim optimizing pass; A and D: a shared noise model; B and C: a
-# width).
-SMEM_QUERY = {"riccati": (12, 4, 1, 1), "riccati_folded": (12, 1),
+# A: a width, its optimizing pass; A and D: a shared noise model; B and C:
+# a width).
+SMEM_QUERY = {"riccati": (12, 4, 16_384, 1, 1), "riccati_folded": (12, 1),
               "candidate": (tile_model.QUADROTOR, 16_384),
               "step": (tile_model.QUADROTOR, 16_384)}
 # Kernel C at n <= 4: (lanes a solve, threads a block, staged where
@@ -117,6 +128,26 @@ WIDTHS_B = (1, 10, 256, 942, 16_384, 32_768, 262_144)
 STEP_WIDTH_CELLS = tuple((model, T_, B) for model, T_ in (
     ("unicycle", 30), ("unicycle", 100), ("cartpole", 50))
     for B in WIDTHS_B)
+# Kernel A at n, m <= 4: (lanes a solve, threads a block, form: 0 each
+# step's blocks read from device memory into registers, 1 staged by
+# cp.async in two shared buffers; -DRQ_STEP_FORM); the shipped build picks
+# the lanes and the form from the width.  Both slim passes (optimizing;
+# evaluating with no dl stream, as the bank's line search).
+RICCATI_SMALL_VARIANTS = ((4, 128, 0), (4, 128, 1), (4, 64, 1), (1, 64, 0),
+                          (1, 64, 1), (1, 128, 0), (1, 32, 0))
+RICCATI_CELLS = (("unicycle", 30, 1), ("unicycle", 30, 942),
+                 ("unicycle", 100, 8_192), ("cartpole", 50, 16_384),
+                 ("unicycle", 100, 262_144), ("cartpole", 50, 262_144))
+# Rounds of turns at each width cell (baseline, shipped, shipped,
+# baseline): a kernel of 0.1-0.3 ms varies by ±10% between timings.
+TURNS = 2
+# The paths' widths and the edges of the launch's bands on 132 SMs.
+WIDTHS_A = (1, 10, 64, 256, 640, 942, 2_004, 8_448, 8_449, 16_384, 16_896,
+            16_897, 32_768, 262_144)
+RICCATI_WIDTH_CELLS = tuple((model, T_, B) for model, T_ in (
+    ("unicycle", 30), ("unicycle", 100), ("cartpole", 50))
+    for B in WIDTHS_A)
+PASSES = {"riccati": ("riccati", "riccati_evaluating")}
 # The float32 fail flags of kernels C and B disagreed with the plain
 # version's on a near-breakdown lane of this fixture before the
 # contraction policy (csrc/smallmat.cuh): (model, horizon, width).
@@ -164,19 +195,22 @@ def _compile(source, tag, suffix, defines):
 
 def _build_variant(kernel, variant, suffix):
     lanes, teams, *buffers = variant
+    shape = ["-DRQ_SHAPE_N=12", "-DRQ_SHAPE_M=4"] if kernel == "riccati" else []
     lib, rows, secs = _compile(
         _build.CSRC_DIR / f"{kernel}.cu",
         f"team_{kernel}_{'x'.join(map(str, variant))}", suffix,
         [f"-DRQ_TEAM_LANES={lanes}", f"-DRQ_TEAMS={teams}",
-         *(f"-DRQ_STAGE_BUFFERS={b}" for b in buffers)])
+         *(f"-DRQ_STAGE_BUFFERS={b}" for b in buffers), *shape])
     rows = [r for r in rows if f"{kernel}_team_kernel" in r[0]]
     return _build._bind(ctypes.CDLL(str(lib)), (suffix,)), rows, secs
 
 
 def _same(a, b) -> bool:
-    """Every output of two launches equal bit for bit (NaN equal to NaN)."""
-    return all(torch.equal(x.nan_to_num(), y.nan_to_num())
-               for x, y in zip(a, b))
+    """Every output of two launches equal bit for bit (NaN equal to NaN;
+    an output one pass does not give is None in both)."""
+    return all((x is None and y is None) or (
+        x is not None and y is not None
+        and torch.equal(x.nan_to_num(), y.nan_to_num())) for x, y in zip(a, b))
 
 
 def sweep(kernel, device) -> None:
@@ -262,8 +296,13 @@ def sass_counts(lib, name: str):
             for f, c in counts.items() if name in names[f]}
 
 
+def _small_name(kernel):
+    """The few-lane kernel's function name (not the team kernel's)."""
+    return "riccati_small_kernel" if kernel == "riccati" else f"{kernel}_kernel"
+
+
 def _print_small_build(kernel, label, lib, rows, secs):
-    name = f"{kernel}_kernel"   # not {kernel}_team_kernel
+    name = _small_name(kernel)
     for fn, regs, stores, loads, stack in rows:
         if name in fn:
             print(f"small sweep {kernel} {label} {_build.short_name(fn)}: "
@@ -295,24 +334,40 @@ def _diff(out, ref) -> str:
             f"fail flags equal: {same}")
 
 
-def _small_defines(variant):
+def _small_defines(kernel, variant):
     """``-D`` flags of a few-lane variant: (lanes, threads) and, for
-    kernel C, whether it stages its steps where K > 1."""
-    K, threads, *staged = variant
+    kernel C, whether it stages its steps where K > 1, for kernel A how a
+    team gets its steps' blocks (``RICCATI_SMALL_VARIANTS``)."""
+    K, threads, *form = variant
+    macro = {"candidate": "RQ_SMALL_STAGE", "riccati": "RQ_STEP_FORM"}
     return [f"-DRQ_SMALL_LANES={K}", f"-DRQ_SMALL_THREADS={threads}",
             f"-DRQ_WIDE_THREADS={threads}",
-            *(f"-DRQ_SMALL_STAGE={v}" for v in staged)]
+            *(f"-D{macro[kernel]}={v}" for v in form)]
+
+
+MODEL_IDS = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
+             "cartpole": tile_model.CARTPOLE,
+             "quadrotor": tile_model.QUADROTOR}
+MODEL_DIMS = {"unicycle": (3, 2), "lqr": (2, 2), "cartpole": (4, 1),
+              "quadrotor": (12, 4)}
+
+
+def _riccati_query(model, dtype, B, optimizing=True):
+    return riccati_cuda.block_shared_memory(*MODEL_DIMS[model], dtype, B,
+                                            optimizing)
 
 
 SMALL = {   # kernel: (variants, variant cells, width cells, launch, query)
     "candidate": (SMALL_VARIANTS, SMALL_CELLS, WIDTH_CELLS,
                   candidate_cuda.launch_candidate,
-                  candidate_cuda.block_shared_memory),
+                  lambda model, dtype, B: candidate_cuda.block_shared_memory(
+                      MODEL_IDS[model], dtype, B)),
     "step": (STEP_VARIANTS, STEP_CELLS, STEP_WIDTH_CELLS,
-             step_cuda.launch_step, step_cuda.block_shared_memory)}
-MODEL_IDS = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
-             "cartpole": tile_model.CARTPOLE,
-             "quadrotor": tile_model.QUADROTOR}
+             step_cuda.launch_step,
+             lambda model, dtype, B: step_cuda.block_shared_memory(
+                 MODEL_IDS[model], dtype, B)),
+    "riccati": (RICCATI_SMALL_VARIANTS, RICCATI_CELLS, RICCATI_WIDTH_CELLS,
+                LAUNCHES["riccati"], _riccati_query)}
 
 
 def _bound_entry(kernel, lib, suffix="f32"):
@@ -321,14 +376,15 @@ def _bound_entry(kernel, lib, suffix="f32"):
 
 
 def small_sweep(kernel, device, baseline=None) -> None:
-    """Kernel C or B at n <= 4: its variants at its variant cells, then
+    """Kernel C, B or A at n <= 4: its variants at its variant cells, then
     the shipped launch (and ``baseline``'s source) at its width cells, then
-    the flag check with the contraction policy's levels."""
+    the flag check with the contraction policy's levels; kernel A in both
+    slim passes (``PASSES``)."""
     f32 = torch.float32
     variants, cells, width_cells, launch, query = SMALL[kernel]
     source = _build.CSRC_DIR / f"{kernel}.cu"
     units = {v: (source, f"small_{kernel}_{'x'.join(map(str, v))}",
-                 _small_defines(v)) for v in variants}
+                 _small_defines(kernel, v)) for v in variants}
     units.update(_flag_units(kernel, baseline))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
@@ -343,9 +399,11 @@ def small_sweep(kernel, device, baseline=None) -> None:
     for v, (lib, rows, secs) in built.items():
         _print_small_build(kernel, v, lib, rows, secs)
         entries[v] = _bound_entry(kernel, lib)
-    for model, horizon, B in cells:
+    passes = PASSES.get(kernel, (kernel,))
+    for (model, horizon, B), case_name in ((c, p) for c in cells
+                                           for p in passes):
         case = kernel_check.timing_cases(model, horizon, B, f32,
-                                         device)[kernel]()
+                                         device)[case_name]()
         args = case[1]()
         shipped = launch(*args)
         times = {}
@@ -355,36 +413,39 @@ def small_sweep(kernel, device, baseline=None) -> None:
             times.setdefault(v, []).append(kernel_check.time_ms(
                 lambda: launch(*args, entries[v])))
             if len(times[v]) == 2:
-                print(f"small sweep {kernel} {model} T={horizon} B={B} f32 "
-                      f"{v}: launch alone {times[v][0]:.4f} / "
+                print(f"small sweep {case_name} {model} T={horizon} B={B} "
+                      f"f32 {v}: launch alone {times[v][0]:.4f} / "
                       f"{times[v][1]:.4f} ms (two passes); shipped outputs "
                       f"and flags bit for bit: {_same(out, shipped)}; "
                       f"{_diff(out, shipped)}", flush=True)
         del case, args, shipped
         torch.cuda.empty_cache()
-    for model, horizon, B in width_cells:
-        nbytes, solves, lanes = query(MODEL_IDS[model], f32, B)
+    for (model, horizon, B), case_name in ((c, p) for c in width_cells
+                                           for p in passes):
+        nbytes, solves, lanes = query(model, f32, B)
         case = kernel_check.timing_cases(model, horizon, B, f32,
-                                         device)[kernel]()
+                                         device)[case_name]()
         args = case[1]()
         shipped = launch(*args)
-        order = (["baseline", "shipped", "shipped", "baseline"]
-                 if baseline is not None else ["shipped", "shipped"])
+        order = (["baseline", "shipped", "shipped", "baseline"] * TURNS
+                 if baseline is not None else ["shipped", "shipped"] * TURNS)
         times = {}
         for name in order:
             entry = entries.get(name)
             times.setdefault(name, []).append(kernel_check.time_ms(
                 lambda: launch(*args, entry)))
-        line = (f"width {kernel} {model} T={horizon} B={B} f32: shipped "
+        line = (f"width {case_name} {model} T={horizon} B={B} f32: shipped "
                 f"(K={lanes}, {solves} solves a block, {nbytes} B shared) "
                 "launch alone "
-                + " / ".join(f"{t:.4f}" for t in times["shipped"]) + " ms")
+                + " / ".join(f"{t:.4f}" for t in times["shipped"])
+                + f" ms (median {statistics.median(times['shipped']):.4f})")
         if baseline is not None:
             out = launch(*args, entries["baseline"])
             line += (", baseline " + " / ".join(
-                f"{t:.4f}" for t in times["baseline"]) + " ms (turns: "
-                "baseline, shipped, shipped, baseline); baseline "
-                + _diff(out, shipped))
+                f"{t:.4f}" for t in times["baseline"]) + " ms (median "
+                f"{statistics.median(times['baseline']):.4f}; turns: "
+                f"baseline, shipped, shipped, baseline, {TURNS} times); "
+                "baseline " + _diff(out, shipped))
         print(line, flush=True)
         del case, args, shipped
         torch.cuda.empty_cache()
@@ -408,7 +469,7 @@ def _flag_units(kernel, baseline=None):
 
 
 def flags_sweep(device, baseline=None) -> None:
-    """The flag check of kernels C and B alone (``flags``)."""
+    """The flag check of kernels C, B and A alone (``flags``)."""
     units = {(kernel, name): unit for kernel in SMALL
              for name, unit in _flag_units(kernel, baseline).items()}
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
@@ -427,24 +488,43 @@ FLAG_INPUTS = {   # kernel: (inputs, plain version, layout, launch)
                   candidate_cuda.launch_candidate),
     "step": (kernel_check.step_inputs,
              step_cuda.step_optimize_bank_plain, step_cuda.step_layout,
-             step_cuda.launch_step)}
+             step_cuda.launch_step),
+    "riccati": (None, lambda ap, theta, mu: riccati_cuda.riccati_bank_plain(
+        ap, theta, mu, slim=True), riccati_cuda.riccati_layout,
+        LAUNCHES["riccati"])}
+
+
+def _flag_args(kernel, device):
+    """At ``FLAG_CASE``: (the float32 arguments of the kernel's plain
+    version, their float64 twins, θ); kernel A's slim optimizing pass."""
+    model, horizon, B = FLAG_CASE
+    f32 = torch.float32
+    if kernel == "riccati":
+        ap, _, _, theta, mu = kernel_check._riccati_fixture(
+            model, horizon, B, f32, device, True)
+        args = (ap, theta, mu)
+        return args, (Approximation(*map(kernel_check._f64, ap)),
+                      kernel_check._f64(theta), kernel_check._f64(mu)), theta
+    args = FLAG_INPUTS[kernel][0](model, horizon, B, f32, device)
+    prob64, noise64 = kernel_check._problem64(model, horizon, device)
+    theta = args[5] if kernel == "candidate" else args[3]
+    return args, (prob64, *map(kernel_check._f64, args[1:-1]),
+                  noise64), theta
 
 
 def flag_check(kernel, device, builds) -> None:
     """At ``FLAG_CASE`` in float32: the lanes whose fail flags (m_fail,
-    and h_fail for kernel B) differ from the float64 plain version's, for
-    the shipped build, each of ``builds`` (name: entry point) and the
-    plain version."""
+    and h_fail for kernels B and A) differ from the float64 plain
+    version's, for the shipped build, each of ``builds`` (name: entry
+    point) and the plain version."""
     model, horizon, B = FLAG_CASE
-    inputs, plain, layout_of, launch = FLAG_INPUTS[kernel]
-    args = inputs(model, horizon, B, torch.float32, device)
-    prob64, noise64 = kernel_check._problem64(model, horizon, device)
-    ref = plain(prob64, *map(kernel_check._f64, args[1:-1]), noise64)
+    _, plain, layout_of, launch = FLAG_INPUTS[kernel]
+    args, args64, theta = _flag_args(kernel, device)
+    ref = plain(*args64)
     layout = layout_of(*args)
     outs = {"shipped": launch(*layout),
             **{name: launch(*layout, entry) for name, entry in builds.items()},
             "plain": plain(*args)}
-    theta = args[5] if kernel == "candidate" else args[3]
     for name, got in outs.items():
         for flag in ("m_fail", "h_fail"):
             if not hasattr(got, flag):
@@ -455,6 +535,7 @@ def flag_check(kernel, device, builds) -> None:
                   f"{name}: {len(lanes)} lanes' {flag} differ from float64's"
                   + "".join(f", lane {b} (θ {float(theta[b]):g}, "
                             f"{bool(g[b])})" for b in lanes[:8]), flush=True)
+    kernel_check.clear_caches()
 
 
 def policy_sweep(device) -> None:
@@ -504,8 +585,9 @@ def main(argv=()) -> int:
     if (kernel not in LAUNCHES and kernel not in ("policy", "flags")
             or rest):
         print("usage: python -m ratilqr_tpu_torch.team_sweep "
-              "[candidate [--baseline DIR]|step [--baseline DIR]|riccati|"
-              "riccati_folded|policy|flags [--baseline DIR]]",
+              "[candidate [--baseline DIR]|step [--baseline DIR]|riccati "
+              "[--baseline DIR]|riccati_folded|policy|flags [--baseline "
+              "DIR]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

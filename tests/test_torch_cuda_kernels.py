@@ -2,10 +2,10 @@
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
 at its first use), kernels A's, B's, C's and D's one-solve-per-team designs
 on the quadrotor at the edges of their blocks (A also at B=262,144),
-kernels B's and C's few-lane designs at n <= 4 at widths that take each of
-their lanes a solve (4 and 1), their fail flags on the near-breakdown
-cartpole fixture, A and B on the n=12 h_fail fixture and B on each small
-model's, which shapes kernels A and D solve per team,
+kernels A's, B's and C's few-lane designs at n <= 4 at widths that take
+each of their lanes a solve (4 and 1), their fail flags on the
+near-breakdown cartpole fixture, A and B on the n=12 h_fail fixture and on
+each small model's, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
 inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
@@ -29,6 +29,10 @@ QUADROTOR = ("quadrotor", 12, 37)   # n=12, m=4
 H_FAIL = (kc.H_FAIL, 12, 37)        # the quadrotor with μ = −1e6 lanes
 CARTPOLE = ("cartpole", 30, 133)    # n=4, m=1
 LINEAR = ("linear6x3", 20, 133)     # no tile model; A and D built for (6, 3)
+# Kernels B's and C's float32 fail flags disagreed with the plain
+# version's on a near-breakdown lane of this fixture (θ = 0.05, lane
+# 1062) before the contraction policy (csrc/smallmat.cuh).
+FLAG_CASE = ("cartpole", 20, 33_793)
 
 
 @pytest.fixture
@@ -44,7 +48,8 @@ def device():
                          or "evaluating")
 @pytest.mark.parametrize("model,T,B", [("unicycle", 20, 133),
                                        ("lqr", 7, 5), QUADROTOR, H_FAIL,
-                                       CARTPOLE, LINEAR])
+                                       CARTPOLE, LINEAR,
+                                       ("linear4x4", 20, 133)])
 def test_riccati_kernel_matches_plain(device, model, T, B, variant, dtype):
     kc.check_riccati(model, T, B, dtype, device, **variant)
 
@@ -77,19 +82,141 @@ def test_riccati_team_kernel_at_full_width(device):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_riccati_design_follows_the_shape(device, dtype):
-    """One solve per team, its working set in dynamic shared memory, at the
-    quadrotor's (12, 4) in every variant and at (6, 3), built at its first
-    use; one solve per thread at the small shapes and where m > 4."""
-    from ratilqr_tpu_torch.ops.riccati_cuda import block_shared_memory
-    for n, m in ((3, 2), (2, 2), (4, 1), (6, 6)):
-        assert block_shared_memory(n, m, dtype)[0] == 0
+    """At the small shipped shapes one solve per team of 4 lanes, 32 a
+    block, up to SMs x 128 lanes (512 threads an SM, the rule kernels B and
+    C share), and of 1 lane, 64 a block, above; at 4 lanes each step read
+    into registers up to SMs x 64 lanes and staged in shared memory above
+    (float64 (4, 1), whose step is too large for registers, stages at every
+    width); one solve per team of 16 lanes, its working set in dynamic
+    shared memory, at the quadrotor's (12, 4) in every variant and at
+    (6, 3), built at its first use; one solve per thread where m > 4."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import (block_shared_memory,
+                                                    first_widths,
+                                                    launch_bands)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, m in ((3, 2), (2, 2), (4, 1)):
+        always = (n, m) == (4, 1) and dtype == torch.float64
+        for opt in (True, False):
+            for w_shared in (True, False):
+                assert first_widths(n, m, dtype, opt, w_shared) == {
+                    4: 1, 1: sms * 128 + 1}
+                bands = launch_bands(n, m, dtype, opt, w_shared)
+                assert bands == ({(4, True): 1, (1, True): sms * 128 + 1}
+                                 if always else
+                                 {(4, False): 1, (4, True): sms * 64 + 1,
+                                  (1, False): sms * 128 + 1})
+                nbytes, solves, lanes = block_shared_memory(
+                    n, m, dtype, sms * 64 + 1, opt, w_shared)
+                assert (solves, lanes) == (32, 4)
+                assert 0 < nbytes <= 232_448   # a block's limit on the H100
+                nbytes, solves, lanes = block_shared_memory(
+                    n, m, dtype, 262_144, opt, w_shared)
+                assert (solves, lanes) == (64, 1)
+                assert 0 <= nbytes <= 232_448
+    assert block_shared_memory(6, 6, dtype) == (0, 128, 1)
     for opt in (True, False):
         for w_shared in (True, False):
-            nbytes, teams, lanes = block_shared_memory(12, 4, dtype, opt,
+            nbytes, teams, lanes = block_shared_memory(12, 4, dtype, 1, opt,
                                                        w_shared)
             assert lanes in (16, 32) and teams * lanes % 32 == 0
             assert 0 < nbytes <= 232_448   # a block's limit on the H100
     assert block_shared_memory(6, 3, dtype)[0] > 0
+
+
+SMALL_A = {"unicycle": (3, 2), "lqr": (2, 2), "cartpole": (4, 1)}
+VARIANT_IDS = ["-".join(k for k, b in v.items() if b) or "evaluating"
+               for v in kc.RICCATI_VARIANTS]
+OPTIMIZING = [v for v in kc.RICCATI_VARIANTS if v["optimizing"]]
+
+
+def _one_lane_width(model, dtype):
+    """The first width at which kernel A's launch at the model's (n, m)
+    takes one lane a solve on this card, from the launch's own query."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import first_widths
+    return first_widths(*SMALL_A[model], dtype)[1]
+
+
+def _staged_width(model, dtype):
+    """The first width at which kernel A's launch at the model's (n, m)
+    stages its steps at 4 lanes a solve on this card (1 where every width
+    stages), from the launch's own query."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import launch_bands
+    return launch_bands(*SMALL_A[model], dtype)[4, True]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", kc.RICCATI_VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("model,T", [("unicycle", 20), ("lqr", 7),
+                                     ("cartpole", 30)])
+def test_riccati_small_kernel_at_staged_width(device, model, T, variant,
+                                              dtype):
+    """Kernel A at n, m <= 4 at the first width whose launch stages each
+    step in shared memory at 4 lanes a solve, every variant."""
+    try:
+        kc.check_riccati(model, T, _staged_width(model, dtype), dtype,
+                         device, **variant)
+    finally:
+        kc.clear_caches()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", kc.RICCATI_VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("model,T", [("unicycle", 20), ("lqr", 7),
+                                     ("cartpole", 30)])
+def test_riccati_small_kernel_at_one_lane_width(device, model, T, variant,
+                                                dtype):
+    """Kernel A at n, m <= 4 at the first width whose launch takes 1 lane a
+    solve (4 lanes: ``test_riccati_kernel_matches_plain``), every variant;
+    θ from ``THETA_MIX``, so the θ = 1e6 lanes latch m_fail."""
+    try:
+        kc.check_riccati(model, T, _one_lane_width(model, dtype), dtype,
+                         device, **variant)
+    finally:
+        kc.clear_caches()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", OPTIMIZING,
+                         ids=[i for i, v in zip(VARIANT_IDS,
+                                                kc.RICCATI_VARIANTS)
+                              if v["optimizing"]])
+@pytest.mark.parametrize("band", ["direct", "staged", "one-lane"])
+@pytest.mark.parametrize("model", list(SMALL_A))
+def test_riccati_small_kernel_latches_h_fail(device, model, band, variant,
+                                             dtype):
+    """Each small model's h_fail fixture at a width taking 4 lanes a solve
+    (37), at the first that stages its steps and at the first taking 1
+    lane: the μ = −1e6 lanes latch h_fail and not m_fail, the θ = 1e6
+    lanes m_fail, as in the plain version."""
+    B = {"direct": lambda: 37, "staged": lambda: _staged_width(model, dtype),
+         "one-lane": lambda: _one_lane_width(model, dtype)}[band]()
+    try:
+        kc.check_riccati(kc.h_fail_fixture(model), 20, B, dtype, device,
+                         **variant)
+    finally:
+        kc.clear_caches()
+
+
+@pytest.mark.parametrize("optimizing", [True, False],
+                         ids=["optimizing", "evaluating"])
+def test_riccati_near_breakdown_flag_cartpole(device, optimizing):
+    """Kernel A's slim pass on the cartpole at T=20, B=33,793 in float32
+    (one lane a solve): its m_fail and h_fail equal the plain version's
+    and the float64 plain version's on every lane."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import riccati_bank
+    variant = dict(optimizing=optimizing, slim=True, shared_w=True,
+                   has_dl=False)
+    try:
+        kc.check_riccati(*FLAG_CASE, torch.float32, device, **variant)
+        ap, _, _, theta, mu = kc._riccati_fixture(*FLAG_CASE, torch.float32,
+                                                  device, True)
+        L_in, dl_in, _, ref = kc._riccati_plain(
+            *FLAG_CASE, torch.float32, device, True, optimizing, False)
+        got = riccati_bank(ap, theta, mu, L_in, dl_in, slim=True)
+        assert torch.equal(got.m_fail, ref.m_fail)
+        assert torch.equal(got.h_fail, ref.h_fail)
+    finally:
+        kc.clear_caches()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -124,10 +251,6 @@ def test_step_team_kernel_latches_h_fail(device, B, dtype):
 
 SMALL_C = {"unicycle": tile_model.UNICYCLE, "lqr": tile_model.LQR,
            "cartpole": tile_model.CARTPOLE}
-# Kernels B's and C's float32 fail flags disagreed with the plain
-# version's on a near-breakdown lane of this fixture (θ = 0.05, lane
-# 1062) before the contraction policy (csrc/smallmat.cuh).
-FLAG_CASE = ("cartpole", 20, 33_793)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -151,3 +151,24 @@ def test_team_sweep_small_variants_cover_the_shipped_kernels(kernel):
     units = team_sweep._flag_units(kernel)
     assert set(units) == {"no_fma", "policy0", "policy1", "policy2"}
     assert units["policy2"][2] == ["-DRQ_PSD_ROUNDING=2"]
+
+
+def test_team_sweep_small_variants_cover_kernel_a():
+    """Each few-lane variant of kernel A takes 1 or 4 lanes a solve in
+    whole warps of solves and reads its steps into registers (form 0) or
+    stages them (1), the variants hold every kernel the shipped launch
+    picks ((4, 128) in both forms, (1, 64) reading into registers), both
+    slim passes are timed, and the width cells hold the edges of the
+    launch's bands on 132 SMs."""
+    from ratilqr_tpu_torch import team_sweep
+    variants, cells, width_cells, _, _ = team_sweep.SMALL["riccati"]
+    for K, threads, form in variants:
+        assert K in (1, 4) and threads % 32 == 0 and form in (0, 1)
+        assert team_sweep._small_defines("riccati", (K, threads, form))[-1] \
+            == f"-DRQ_STEP_FORM={form}"
+    assert {(4, 128, 0), (4, 128, 1), (1, 64, 0)} <= set(variants)
+    assert team_sweep.PASSES["riccati"] == ("riccati", "riccati_evaluating")
+    widths = {B for _, _, B in width_cells}
+    assert {132 * 64, 132 * 64 + 1, 132 * 128, 132 * 128 + 1} <= widths
+    assert team_sweep._flag_units("riccati").keys() == {
+        "no_fma", "policy0", "policy1", "policy2"}
