@@ -5,7 +5,7 @@
 // per-thread kernels: riccati.cu runs dp_step over streamed blocks at the
 // shapes neither of its team designs takes (m > 4, or n > 4 past a
 // 16-lane team), and riccati_folded.cu runs folded_step over the
-// closed-loop fold at n ≤ 4 and 16 ≤ n ≤ 32.  At n, m ≤ 4 kernels A, B and
+// closed-loop fold at n ≤ 4 above its 4-lane band and at 16 ≤ n ≤ 32.  At n, m ≤ 4 kernels A, B and
 // C run the few-lane twins in small_team.cuh (rq::small::dp_step and
 // folded_step), in the same operation order.  References:
 // ileqg.jl:341-465.
@@ -16,8 +16,10 @@
 namespace rq {
 
 // Risk term added to s: θ = 0 → ½ tr(W S') (ileqg.jl:385); θ > 0 →
-// θ/2 s⃗ᵀM⁻¹s⃗ − (logdet W + logdet M)/(2θ) (ileqg.jl:387).
-template <typename T, int N>
+// θ/2 s⃗ᵀM⁻¹s⃗ − (logdet W + logdet M)/(2θ) (ileqg.jl:387).  ROUNDED rounds
+// the last product and difference on their own, as
+// small_team.cuh:risk_term<..., true> does (folded_step below).
+template <typename T, int N, bool ROUNDED = false>
 __device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)[N][N],
                                        const T (&sv)[N], const T (&Mc)[N][N], T ldW) {
   T tr = T(0);
@@ -28,9 +30,15 @@ __device__ __forceinline__ T risk_term(T theta, const T (&W)[N][N], const T (&S)
   T Minv_sv[N];
   cho_solve_vec<T, N>(Mc, sv, Minv_sv);
   const T theta_safe = (theta == T(0)) ? T(1) : theta;
-  const T sens = T(0.5) * theta * dot<T, N>(sv, Minv_sv) -
-                 (ldW + cho_logdet<T, N>(Mc)) / (T(2) * theta_safe);
-  return (theta == T(0)) ? T(0.5) * tr : sens;
+  if constexpr (ROUNDED) {
+    const T sens = sub_rn(mul_rn(T(0.5) * theta, dot<T, N>(sv, Minv_sv)),
+                          (ldW + cho_logdet<T, N>(Mc)) / (T(2) * theta_safe));
+    return (theta == T(0)) ? T(0.5) * tr : sens;
+  } else {
+    const T sens = T(0.5) * theta * dot<T, N>(sv, Minv_sv) -
+                   (ldW + cho_logdet<T, N>(Mc)) / (T(2) * theta_safe);
+    return (theta == T(0)) ? T(0.5) * tr : sens;
+  }
 }
 
 // M = sym(W⁻¹ − θS), its factor Mc, and D = I + θ (M⁻¹S)ᵀ.  Returns
@@ -135,7 +143,10 @@ __device__ __forceinline__ void dp_step(
 }
 
 // Evaluating step over the closed-loop fold (q, q̄_vec, Q̄, Ā) with dl = 0
-// (riccati.py:_riccati_folded_core): m_fail latches on any failed M.
+// (riccati.py:_riccati_folded_core): m_fail latches on any failed M.  The
+// risk term is rounded as in kernel D's few-lane step
+// (small_team.cuh:folded_step<..., true>), which the launch takes below
+// the 4-lane band's edge.
 template <typename T, int N>
 __device__ __forceinline__ void folded_step(T q, const T (&qv)[N], const T (&Q)[N][N],
                                             const T (&A)[N][N], const T (&W)[N][N],
@@ -146,7 +157,7 @@ __device__ __forceinline__ void folded_step(T q, const T (&qv)[N], const T (&Q)[
   T DS[N][N], Dsv[N], AtDsv[N], AtDS[N][N], AtDSA[N][N];
   mm<T, N, N, N>(D, S, DS);
   mv<T, N, N>(D, sv, Dsv);
-  const T s_new = q + s + risk_term<T, N>(theta, W, S, sv, Mc, ldW);
+  const T s_new = q + s + risk_term<T, N, true>(theta, W, S, sv, Mc, ldW);
   mtv<T, N, N>(A, Dsv, AtDsv);
   mtm<T, N, N, N>(A, DS, AtDS);
   mm<T, N, N, N>(AtDS, A, AtDSA);

@@ -151,6 +151,7 @@ using rq::team::kTeamLanes;
 using rq::team::kTeams;
 using rq::team::Noise;
 using rq::team::Nothing;
+using rq::team::read_lane;
 constexpr int kBuffers = RQ_STAGE_BUFFERS;
 static_assert(kBuffers == 1 || kBuffers == 2, "one or two staging buffers");
 static_assert(RQ_STEP_FORM >= 0 && RQ_STEP_FORM <= 2,
@@ -528,13 +529,6 @@ constexpr bool kMayStage =
     RQ_STEP_FORM == 1 || kStageAlways<T, N, M, OPT> || (RQ_STEP_FORM == 2 && K > 1);
 template <typename T, int N, int M, bool OPT>
 constexpr bool kMayRead = RQ_STEP_FORM != 1 && !kStageAlways<T, N, M, OPT>;
-
-// C entries of step t of a lane-minor (T, C, B) array at lane b.
-template <int C, typename T>
-__device__ __forceinline__ void read_lane(T* dst, const T* src, int t, int64_t B, int64_t b) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) dst[c] = src[(int64_t(t) * C + c) * B + b];
-}
 
 // Lane `lane` of a team of K stores entries lane, lane + K, ... of v into
 // step t of a lane-minor (T, C, B) array at lane b (a live team only).

@@ -1,8 +1,9 @@
-// The width rule of the few-lane kernels at n ≤ kUnrollMax, kernels A, B
-// and C (riccati.cu:riccati_small_kernel, step.cu:step_kernel,
-// candidate.cu:candidate_kernel): how many lanes of a warp one solve
-// takes, for a bank of B lanes on this card, and (kernel A) whether its
-// teams read each step's streamed blocks into registers or stage them.
+// The width rule of the few-lane kernels at n ≤ kUnrollMax, kernels A-D
+// (riccati.cu:riccati_small_kernel, step.cu:step_kernel,
+// candidate.cu:candidate_kernel, riccati_folded.cu:
+// riccati_folded_small_kernel): how many lanes of a warp one solve takes,
+// for a bank of B lanes on this card, and (kernel A) whether its teams
+// read each step's streamed blocks into registers or stage them.
 //
 // K = 4 while that keeps the bank within kSmallFill = 512 threads an SM,
 // so up to B = 16,896 on an H100's 132 SMs; 1 above.  A narrow bank so

@@ -1,16 +1,16 @@
 // Small-matrix algebra for one solve per team of K lanes (K ∈ {1, 2, 4})
 // at n ≤ kUnrollMax, every matrix in registers.
 //
-// The few-lane counterpart of dp_step.cuh's folded_step (kernel C) and of
-// its dp_step (kernel B: optimizing; kernel A: optimizing and evaluating),
-// as team_mat.cuh is the 16-lane one at n=12: the same formulas in the
-// same operation order, so a team and one thread differ only by fused
-// multiply-adds, and every K gives the same bits.  Every lane of a team
-// holds the carry (s, s⃗, S), the model blocks or the fold, M's Cholesky
-// factor and (dp_step) g, G, H, H's factor and the gains in full; what is
-// split is the work with long dependent chains or many products.  Lane r
-// owns the rows and columns i = r, r + K, r + 2K, ... (slot i / K of its
-// row arrays):
+// The few-lane counterpart of dp_step.cuh's folded_step (kernels C and
+// D) and of its dp_step (kernel B: optimizing; kernel A: optimizing and
+// evaluating), as team_mat.cuh is the 16-lane one at n=12: the same
+// formulas in the same operation order, so a team and one thread differ
+// only by fused multiply-adds, and every K gives the same bits.  Every
+// lane of a team holds the carry (s, s⃗, S), the model blocks or the fold,
+// M's Cholesky factor and (dp_step) g, G, H, H's factor and the gains in
+// full; what is split is the work with long dependent chains or many
+// products.  Lane r owns the rows and columns i = r, r + K, r + 2K, ...
+// (slot i / K of its row arrays):
 //   - the N + 1 solves with M's factor: column i of M⁻¹S (which is row i
 //     of D = I + θ(M⁻¹S)ᵀ) and, as column N, M⁻¹s⃗;
 //   - row i of DS, AᵀDS and AᵀDS·A, and entry i of Ds⃗, AᵀDs⃗ and s⃗;
@@ -221,13 +221,16 @@ __device__ __forceinline__ T atdsa_row(int i, const T (&qv)[N], const T (&Q)[N][
 // Evaluating step over the closed-loop fold (q, q̄⃗, Q̄, Ā), as
 // dp_step.cuh:folded_step (and its m_factor and risk_term): the carry
 // (s, s⃗, S) holds time t+1 on entry and time t on exit, on every lane;
-// m_fail latches on any failed M.  Q̄ must be symmetric already.
+// m_fail latches on any failed M.  Q̄ must be symmetric already.  ROUNDED
+// rounds the risk term's last product and difference on their own
+// (risk_term): kernel D, as its one-solve-per-thread step
+// (dp_step.cuh:folded_step) does; kernel C keeps the term as written.
 //   1. every lane: M = sym(W⁻¹ − θS) and its factor;
 //   2. lane r: its columns of M⁻¹[S | s⃗], its rows of D, DS and Ds⃗;
 //   3. gather M⁻¹s⃗, DS and Ds⃗; every lane: the risk term and s;
 //   4. lane r: its rows of AᵀDS, AᵀDS·A, S = Q̄ + AᵀDS·A and s⃗ = q̄⃗ + AᵀDs⃗;
 //   5. gather S and s⃗; every lane: S ← sym(S).
-template <typename T, int N, int K>
+template <typename T, int N, int K, bool ROUNDED = false>
 __device__ __forceinline__ void folded_step(int lane, T q, const T (&qv)[N], const T (&Q)[N][N],
                                             const T (&A)[N][N], const T (&W)[N][N],
                                             const T (&Wi)[N][N], T ldW, T theta, T& s,
@@ -235,7 +238,7 @@ __device__ __forceinline__ void folded_step(int lane, T q, const T (&qv)[N], con
   constexpr int R = kSlots<N, K>;
   T Mc[N][N], Minv_sv[N], DS[N][N], Dsv[N];
   if (!m_factor<T, N, K>(lane, theta, Wi, S, sv, Mc, Minv_sv, DS, Dsv)) m_fail = true;
-  const T s_new = q + s + risk_term<T, N>(theta, W, S, sv, Minv_sv, Mc, ldW);
+  const T s_new = q + s + risk_term<T, N, ROUNDED>(theta, W, S, sv, Minv_sv, Mc, ldW);
   T Sr[R][N], svr[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) svr[k] = atdsa_row<T, N>(lane + K * k, qv, Q, A, DS, Dsv, Sr[k]);

@@ -36,7 +36,13 @@
 // (python -m ratilqr_tpu_torch.team_sweep flags; PERF.md §7): kernel C at
 // kFactor kept m_fail False on lane 1062 (θ = 0.05) where the plain
 // float32 version and float64 latch it, and agreed at kCarry, as a build
-// without any contraction did; kernel B's flags agreed at every level.
+// without any contraction did; kernel B's and A's flags agreed at every
+// level.  Kernel D's few-lane kernel (riccati_folded.cu) also kept that
+// lane False at kFactor and agreed at kCarry, but at kCarry its float32
+// value left the drift rule on a lane of another near-breakdown fixture,
+// so it stays at kFactor.  On lane 1062 M's smallest eigenvalue in
+// float64 is within float32's rounding of M's entries of 0, which no
+// float32 carry decides (PERF.md §7).
 // kCarry costs kernel B 2-5% at its widest banks (its whole optimizing
 // step loses its multiply-adds), so B stays at kFactor.  The model calls,
 // the fold and the value's sums stay nvcc's.  -DRQ_PSD_ROUNDING=0|1|2

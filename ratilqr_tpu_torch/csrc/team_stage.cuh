@@ -71,6 +71,14 @@ struct BlockSmem {
   Team team[K];
 };
 
+// C entries of step t of a lane-minor (T, C, B) array at lane b, into
+// registers (the few-lane kernels of riccati.cu and riccati_folded.cu).
+template <int C, typename T>
+__device__ __forceinline__ void read_lane(T* dst, const T* src, int t, int64_t B, int64_t b) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) dst[c] = src[(int64_t(t) * C + c) * B + b];
+}
+
 // One word from device memory into shared memory: a plain copy, or
 // (ASYNC) a cp.async of 4 or 8 bytes.
 template <bool ASYNC, typename T>

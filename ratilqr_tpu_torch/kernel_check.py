@@ -81,6 +81,11 @@ TOL = {
 # 2.3e-3 on a value of 192); across the θ = 0.05 lanes the kernel was the
 # worse of the two by 4x on 110 lanes and the better by 4x on 91.
 F32_DRIFT_FACTOR = 16.0
+# A lane whose M, in the float64 plain pass, comes within this share of
+# W⁻¹'s scale of singular (16 times float32's unit roundoff, 6e-8, with
+# which M's entries are rounded) is near neurotic breakdown beyond what a
+# float32 evaluation resolves: its float32 m_fail is its roundings' draw.
+F32_UNRESOLVED = 1e-6
 
 
 def random_linear_arrays(n: int, m: int, seed: int = 0):
@@ -223,10 +228,11 @@ def _close(name: str, got, want, lanes, rtol: float, atol
     if bool(bad.any()):
         excess = torch.where(bad, diff - allowed, torch.zeros_like(diff))
         i = int(excess.nan_to_num(float("inf")).flatten().argmax())
+        lane = int(lanes.nonzero().flatten()[i // max(1, diff[0].numel())])
         raise AssertionError(
             f"{name}: {int(bad.sum())} of {bad.numel()} elements differ; "
             f"worst |kernel − plain| {float(diff.flatten()[i]):.3e} against "
-            f"{float(allowed.flatten()[i]):.3e} allowed")
+            f"{float(allowed.flatten()[i]):.3e} allowed, on lane {lane}")
     ratio = torch.where(diff > 0, diff / allowed, torch.zeros_like(diff))
     return float(diff.max()), float(ratio.max())
 
@@ -343,9 +349,11 @@ def _riccati_plain(model: str, T: int, B: int, dtype, device,
 
 
 def clear_caches() -> None:
-    """Free the fixtures and plain outputs kernel A's checks keep."""
+    """Free the fixtures and plain outputs kernels A's and D's checks
+    keep."""
     _riccati_plain.cache_clear()
     _riccati_fixture.cache_clear()
+    _folded_fixture.cache_clear()
 
 
 def _slim(full, optimizing: bool):
@@ -489,18 +497,78 @@ def check_candidate(model: str, T: int, B: int, dtype, device
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def _folded_fixture(model: str, T: int, B: int, dtype, device):
+    """The folded stack with its shared noise model, θ and the noise model,
+    kept for the check with the other noise model."""
+    prob, x_ref, l, L, mu, theta, noise = candidate_inputs(model, T, B,
+                                                           dtype, device)
+    return approximate_folded(prob, x_ref, l, L, mu, noise), theta, noise
+
+
 def folded_inputs(model: str, T: int, B: int, dtype, device,
                   shared_w: bool = True):
     """``(folded stack, theta)``: :func:`approximate_folded` of the
     candidate fixture (θ from ``THETA_MIX``), with a per-lane noise model
     unless ``shared_w``."""
-    prob, x_ref, l, L, mu, theta, noise = candidate_inputs(model, T, B,
-                                                           dtype, device)
-    fa = approximate_folded(prob, x_ref, l, L, mu, noise)
+    fa, theta, noise = _folded_fixture(model, T, B, dtype, device)
     if not shared_w:
         W, W_inv, logdet_W = per_lane_noise(noise, B)
         fa = fa._replace(W=W, W_inv=W_inv, logdet_W=logdet_W)
     return fa, theta
+
+
+def folded_margins(fa: FoldedApprox, theta, lanes) -> list:
+    """For each of ``lanes`` of a folded stack (float64): the smallest
+    eigenvalue of M = sym(W⁻¹ − θS) over the plain evaluating pass (until
+    M fails), relative to the largest |W⁻¹| entry of that step; negative
+    where M fails."""
+    B = theta.shape[0]
+    f = FoldedApprox(*(x[lanes] if x.dim() and x.shape[0] == B else x
+                       for x in fa))
+    th = theta[lanes][:, None, None]
+    eye = torch.eye(f.A.shape[-1], dtype=f.A.dtype, device=f.A.device)
+    S = f.Q_term
+    worst = torch.full(th.shape[:1], float("inf"), dtype=f.A.dtype,
+                       device=f.A.device)
+    for t in reversed(range(f.A.shape[1])):
+        Wi = f.W_inv[t] if f.W_inv.dim() == 3 else f.W_inv[:, t]
+        M = smallmat.sym(Wi - th * S)
+        ok = torch.isfinite(M).flatten(1).all(1)
+        lam = torch.linalg.eigvalsh(torch.where(ok[:, None, None], M, eye))
+        rel = lam[:, 0] / Wi.abs().amax((-2, -1))
+        worst = torch.where(ok, torch.minimum(worst, rel), worst)
+        D = eye + th * smallmat.cho_solve_mat(smallmat.cholesky(M),
+                                              S).transpose(-1, -2)
+        S = smallmat.sym(f.Q[:, t]
+                         + f.A[:, t].transpose(-1, -2) @ D @ S @ f.A[:, t])
+    return worst.tolist()
+
+
+def check_folded_flags(model: str, T: int, B: int, device,
+                       kernel: Callable = riccati_bank_folded) -> list:
+    """Kernel D's float32 m_fail (``kernel``, a shared noise model) against
+    the float64 plain version's on every lane that float32 resolves
+    (:data:`F32_UNRESOLVED`); returns the lanes it does not, at most one in
+    10,000, whose flags are not compared."""
+    fa, theta = folded_inputs(model, T, B, torch.float32, device)
+    fa64, theta64 = FoldedApprox(*map(_f64, fa)), _f64(theta)
+    got = kernel(fa, theta).m_fail
+    want = riccati_bank_folded_plain(fa64, theta64).m_fail
+    lanes = torch.nonzero(got != want).flatten().tolist()
+    margins = folded_margins(fa64, theta64, lanes) if lanes else []
+    resolved = [(b, m) for b, m in zip(lanes, margins)
+                if abs(m) >= F32_UNRESOLVED]
+    if resolved:
+        raise AssertionError(
+            f"m_fail: {len(resolved)} lanes differ from float64's where "
+            "float32 resolves M, e.g. " + ", ".join(
+                f"lane {b} (θ {float(theta[b]):g}, margin {m:.3e})"
+                for b, m in resolved[:4]))
+    if len(lanes) * 10_000 > B:
+        raise AssertionError(f"m_fail: {len(lanes)} of {B} lanes differ "
+                             "from float64's, all unresolved in float32")
+    return lanes
 
 
 def check_riccati_folded(model: str, T: int, B: int, dtype, device,
@@ -613,7 +681,9 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
     wrapper and its plain version, ``launch(layout())`` the kernel alone
     on inputs already in its layout.  Kernel A is its slim optimizing pass
     (``riccati``) or its slim evaluating pass with no dl stream
-    (``riccati_evaluating``, as the bank's line search runs it).  Inputs are seeded at up to
+    (``riccati_evaluating``, as the bank's line search runs it); kernel D
+    takes a shared noise model (``riccati_folded``) or a per-lane one
+    (``riccati_folded_lane_w``).  Inputs are seeded at up to
     ``TILE_BASE`` lanes and repeated beyond that; each case builds its own
     when it is reached, so one case's inputs are freed before the next."""
     base = min(B, TILE_BASE)
@@ -655,9 +725,11 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
                 lambda a: launch_candidate(*a),
                 lambda: candidate_bank_plain(*args))
 
-    def riccati_folded():
-        fa, theta = folded_inputs(model, T, base, dtype, device)
-        fa, th = _widen(fa, B), _wide(theta, B)
+    def riccati_folded(shared_w=True):
+        fa, theta = folded_inputs(model, T, base, dtype, device, shared_w)
+        fa = _widen(fa, B) if shared_w else type(fa)(*(_wide(x, B)
+                                                       for x in fa))
+        th = _wide(theta, B)
         return (lambda: riccati_bank_folded(fa, th),
                 lambda: folded_layout(fa, th),
                 lambda a: launch_folded(*a),
@@ -665,7 +737,8 @@ def timing_cases(model: str, T: int, B: int, dtype, device):
 
     return {"riccati": riccati, "riccati_evaluating": riccati_evaluating,
             "step": step, "candidate": candidate,
-            "riccati_folded": riccati_folded}
+            "riccati_folded": riccati_folded,
+            "riccati_folded_lane_w": lambda: riccati_folded(False)}
 
 
 def kernel_timings(model: str, T: int, B: int, dtype, device,

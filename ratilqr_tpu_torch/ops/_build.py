@@ -215,7 +215,7 @@ _SIGNATURES = {   # of each type's entry point, <name>_f32 and <name>_f64
     "ratilqr_candidate": [_I] * 3 + [_PARAMS] + [_P] * 8 + [_P] * 3 + [_P],
     "ratilqr_candidate_smem": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ratilqr_riccati_folded": [_I] * 4 + [_P] * 11 + [_P] * 2 + [_P],
-    "ratilqr_riccati_folded_smem": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ratilqr_riccati_folded_smem": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
 

@@ -24,8 +24,10 @@ n, m ≤ 4 (the unicycle, LQR, the cartpole; K picked from the width), one
 per team of 16 lanes, its working set in shared memory, at the shapes a
 16-lane team takes (4 < n, m ≤ 4, n + m ≤ 16: the quadrotor, and e.g.
 (6, 3)), and one solve per thread at the others
-(:func:`block_shared_memory` says which).  Kernel D does the same at
-4 < n < 16 (the quadrotor, and e.g. n=6; :func:`folded_block_shared_memory`).
+(:func:`block_shared_memory` says which).  Kernel D does the same: one
+solve per team of K = 4 or 1 lanes at n ≤ 4, of 16 lanes at 4 < n < 16
+(the quadrotor, and e.g. n=6), and one per thread above
+(:func:`folded_block_shared_memory`, :func:`folded_first_widths`).
 """
 from __future__ import annotations
 
@@ -321,18 +323,26 @@ def _folded_entry(name: str, dtype, n: int):
                         () if n in FOLDED_SHAPES else (n,), name)
 
 
-def folded_block_shared_memory(n: int, dtype, w_shared: bool = True
-                               ) -> Tuple[int, int, int]:
-    """``(bytes, teams, lanes)`` of kernel D at n with a shared or per-lane
-    noise model: the dynamic shared memory a block takes (0 where the
-    kernel runs one solve per thread), its teams per block and lanes per
-    team.  Builds the library that holds n if needed."""
+def folded_block_shared_memory(n: int, dtype, w_shared: bool = True,
+                               B: int = 1) -> Tuple[int, int, int]:
+    """``(bytes, solves, lanes)`` of kernel D's launch at n for a bank of
+    ``B`` lanes on the current card with a shared or per-lane noise model:
+    the dynamic shared memory a block takes, its solves (teams) a block and
+    lanes a solve.  Builds the library that holds n if needed."""
     _check_dims(KERNEL_FOLDED, n)
     teams, lanes = ctypes.c_int(), ctypes.c_int()
     nbytes = _folded_entry(f"{KERNEL_FOLDED}_smem", dtype, n)(
-        n, int(w_shared), ctypes.byref(teams), ctypes.byref(lanes))
+        n, B, int(w_shared), ctypes.byref(teams), ctypes.byref(lanes))
     _build.check(nbytes if nbytes < 0 else 0, KERNEL_FOLDED)
     return nbytes, teams.value, lanes.value
+
+
+def folded_first_widths(n: int, dtype, w_shared: bool = True,
+                        B_max: int = 1 << 30) -> Dict[int, int]:
+    """``{lanes a solve: the narrowest width B ≤ B_max whose launch takes
+    it}`` of kernel D at n on the current card."""
+    return _build.first_widths_by(lambda B: folded_block_shared_memory(
+        n, dtype, w_shared, B)[2], B_max)
 
 
 def launch_folded(ins, w_shared: bool, entry=None) -> BankFolded:
@@ -349,7 +359,7 @@ def launch_folded(ins, w_shared: bool, entry=None) -> BankFolded:
                     _build.ptr(value), _build.ptr(m_fail),
                     _build.stream_of(value))
     _build.check(rc, KERNEL_FOLDED, "" if rc <= 0 else (
-        f"{folded_block_shared_memory(n, value.dtype, w_shared)[0]} B of "
+        f"{folded_block_shared_memory(n, value.dtype, w_shared, Bn)[0]} B of "
         "shared memory a block"))
     _build.launch_counts[KERNEL_FOLDED] += 1
     return BankFolded(value, m_fail)

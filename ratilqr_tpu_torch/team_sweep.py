@@ -1,9 +1,9 @@
 """Time the one-solve-per-team design of kernel C (``candidate``), B
 (``step``), A (``riccati``, its slim optimizing pass) or D
 (``riccati_folded``, shared noise model) in other team shapes, and kernel
-A's and D's two staging forms; for kernels C, B and A also their n ≤ 4
-design in other team widths, block sizes and staging forms, and at the
-main paths' widths.
+A's and D's two staging forms; for kernels C, B, A and D also their n ≤ 4
+design in other team widths, block sizes and (C, A) staging forms, and at
+the main paths' widths.
 
 Builds ``csrc/<kernel>.cu`` (kernel A: its (12, 4) alone,
 ``-DRQ_SHAPE_N/M``) once per variant and working type with
@@ -19,30 +19,34 @@ in reverse, and checks that each gives the shipped kernel's outputs
 (kernels C and D: value; kernel B: x, value, L, dl; kernel A: value, L,
 dl) and fail flags bit for bit.
 
-Kernels C, B and A at n ≤ 4 (``candidate``, ``step``, ``riccati``;
-float32): each ``SMALL_VARIANTS`` (C), ``STEP_VARIANTS`` (B) or
-``RICCATI_SMALL_VARIANTS`` (A) entry — lanes a solve K of 1 or 4, threads
-a block and, for C, staging by cp.async on or off where K > 1, for A how
-a team gets each step's blocks (read from device memory into registers
-or staged by cp.async) — builds with ``-DRQ_SMALL_LANES``,
+Kernels C, B, A and D at n ≤ 4 (``candidate``, ``step``, ``riccati``,
+``riccati_folded``; float32): each ``SMALL_VARIANTS`` (C),
+``STEP_VARIANTS`` (B), ``RICCATI_SMALL_VARIANTS`` (A) or
+``RICCATI_FOLDED_SMALL_VARIANTS`` (D) entry — lanes a solve K of 1 or 4,
+threads a block and, for C, staging by cp.async on or off where K > 1,
+for A how a team gets each step's blocks (read from device memory into
+registers or staged by cp.async) — builds with ``-DRQ_SMALL_LANES``,
 ``-DRQ_SMALL_THREADS`` (and ``-DRQ_WIDE_THREADS``, the threads at K = 1),
 ``-DRQ_SMALL_STAGE`` or ``-DRQ_STEP_FORM``, as do the flag check's
 builds below; the sweep prints each one's ptxas report and,
 where the toolkit has ``cuobjdump``, the count of each kind of load,
 store, shuffle and barrier in its SASS; it times each (the variants and
 the flag check's builds) at ``SMALL_CELLS`` / ``STEP_CELLS`` /
-``RICCATI_CELLS`` (the unicycle T=30 at B=1 and 942, B's also at RAT
-iLQR's T=100, B=10, A's at T=100, B=8,192, the unicycle T=100 and the
-cartpole T=50 at B=16,384 and 262,144) in two passes and checks each
-against the shipped build (whose launch picks K) bit for bit; kernel A
-in both slim passes, optimizing and evaluating (``PASSES``).  Then it
-times the shipped launch at ``WIDTH_CELLS`` / ``STEP_WIDTH_CELLS`` /
-``RICCATI_WIDTH_CELLS`` (the unicycle T=30 and T=100 and the cartpole
-T=50, each at B = 1, 256, 640, 942, 16,384, 32,768, 65,536 and 262,144
-for C, 1, 10, 256, 942, 16,384, 32,768 and 262,144 for B, and for A the
-paths' widths and the edges of its bands, ``WIDTHS_A``) with the K (and
-form) it picks.  ``--baseline DIR`` also builds ``DIR/<kernel>.cu`` (the
-csrc directory of another checkout, e.g. the parent commit's) and times
+``RICCATI_CELLS`` / ``RICCATI_FOLDED_CELLS`` (the unicycle T=30 at B=1
+and 942, B's and D's also at RAT iLQR's T=100, B=10, A's and D's at
+T=100, B=8,192, the unicycle T=100 and the cartpole T=50 at B=16,384 and
+262,144) in two passes and checks each against the shipped build (whose
+launch picks K) bit for bit; kernel A in both slim passes, optimizing
+and evaluating, kernel D with a shared and a per-lane noise model
+(``PASSES``).  Then it times the shipped launch at ``WIDTH_CELLS`` /
+``STEP_WIDTH_CELLS`` / ``RICCATI_WIDTH_CELLS`` /
+``RICCATI_FOLDED_WIDTH_CELLS`` (the unicycle T=30 and T=100 and the
+cartpole T=50, each at B = 1, 256, 640, 942, 16,384, 32,768, 65,536 and
+262,144 for C, 1, 10, 256, 942, 16,384, 32,768 and 262,144 for B, and
+for A and D the paths' widths and the edges of their bands, ``WIDTHS_A``
+and ``WIDTHS_D``) with the K (and A's form) it picks.  ``--baseline DIR``
+also builds ``DIR/<kernel>.cu`` (the csrc directory of another checkout,
+e.g. the parent commit's) and times
 it beside the shipped build at every width cell, in turns (baseline,
 shipped, shipped, baseline, ``TURNS`` times, with the medians), with its
 largest difference from the shipped values and whether its fail flags
@@ -53,17 +57,22 @@ disagreed with the plain version before the contraction policy of
 differ from float64's in the shipped build, a build without fused
 multiply-adds (``-fmad=false``), a build at each level of the policy
 (``-DRQ_PSD_ROUNDING`` = 0: off, 1: M and the pivots, 2: also the S
-update), the baseline and the plain version.
+update), the baseline and the plain version; and for kernel D, at
+``DRIFT_CASE``, each one's largest float32 value error against float64
+and its ratio to the drift rule of ``kernel_check`` (``drift_check``).
+With each lane it names, kernel D's checks print the smallest eigenvalue
+of M over the float64 pass, relative to W⁻¹'s scale: how near the lane
+is to neurotic breakdown.
 
 ``policy`` builds every kernel with the contraction policy off and times
 each beside the shipped build at ``POLICY_CELLS`` (``chip_smoke.py``
 phase 9's cells), in turns; ``flags [--baseline DIR]`` runs the flag
-check of kernels C, B and A alone.
+check of kernels C, B, A and D alone.
 
 Run on a machine with a CUDA card, from the repository root:
-``python -m ratilqr_tpu_torch.team_sweep [candidate [--baseline DIR]|
-step [--baseline DIR]|riccati [--baseline DIR]|riccati_folded|policy|
-flags [--baseline DIR]]`` (kernel C without an argument).
+``python -m ratilqr_tpu_torch.team_sweep [candidate|step|riccati|
+riccati_folded [--baseline DIR]|policy|flags [--baseline DIR]]`` (kernel
+C without an argument).
 """
 from __future__ import annotations
 
@@ -99,9 +108,10 @@ LAUNCHES = {"candidate": candidate_cuda.launch_candidate,
                 riccati_cuda.launch_riccati(ins, shape, True, entry),
             "riccati_folded": riccati_cuda.launch_folded}
 # Arguments of each kernel's shared-memory query on the quadrotor (kernel
-# A: a width, its optimizing pass; A and D: a shared noise model; B and C:
-# a width).
-SMEM_QUERY = {"riccati": (12, 4, 16_384, 1, 1), "riccati_folded": (12, 1),
+# A: a width, its optimizing pass; A and D: a width and a shared noise
+# model; B and C: a width).
+SMEM_QUERY = {"riccati": (12, 4, 16_384, 1, 1),
+              "riccati_folded": (12, 16_384, 1),
               "candidate": (tile_model.QUADROTOR, 16_384),
               "step": (tile_model.QUADROTOR, 16_384)}
 # Kernel C at n <= 4: (lanes a solve, threads a block, staged where
@@ -147,13 +157,39 @@ WIDTHS_A = (1, 10, 64, 256, 640, 942, 2_004, 8_448, 8_449, 16_384, 16_896,
 RICCATI_WIDTH_CELLS = tuple((model, T_, B) for model, T_ in (
     ("unicycle", 30), ("unicycle", 100), ("cartpole", 50))
     for B in WIDTHS_A)
-PASSES = {"riccati": ("riccati", "riccati_evaluating")}
+PASSES = {"riccati": ("riccati", "riccati_evaluating"),
+          "riccati_folded": ("riccati_folded", "riccati_folded_lane_w")}
+# Kernel D at n <= 4: (lanes a solve, threads a block); 1 lane a solve is
+# the one-solve-per-thread kernel, 128 threads a block, which the shipped
+# build takes above the 4-lane band.  A shared and a per-lane noise model
+# (``PASSES``).
+RICCATI_FOLDED_SMALL_VARIANTS = ((4, 128), (4, 64), (1, 128))
+# RAT iLQR's banks (T=100, B=10), its CE generation's (T=100, B=16,384),
+# RAT iLQR++'s widths (T=30, B=1 and 942), both sides of the 4-lane band's
+# edge and the widest banks.
+RICCATI_FOLDED_CELLS = (("unicycle", 100, 10), ("unicycle", 30, 1),
+                        ("unicycle", 30, 942), ("unicycle", 100, 8_192),
+                        ("unicycle", 30, 16_384), ("unicycle", 100, 16_384),
+                        ("cartpole", 50, 16_384), ("unicycle", 30, 16_897),
+                        ("unicycle", 100, 16_897), ("cartpole", 50, 16_897),
+                        ("unicycle", 100, 32_768),
+                        ("unicycle", 100, 262_144),
+                        ("cartpole", 50, 262_144))
+WIDTHS_D = (1, 10, 64, 256, 942, 8_448, 8_449, 16_384, 16_896, 16_897,
+            32_768, 262_144)
+RICCATI_FOLDED_WIDTH_CELLS = tuple((model, T_, B) for model, T_ in (
+    ("unicycle", 30), ("unicycle", 100), ("cartpole", 50))
+    for B in WIDTHS_D)
 # The float32 fail flags of kernels C and B disagreed with the plain
 # version's on a near-breakdown lane of this fixture before the
 # contraction policy (csrc/smallmat.cuh): (model, horizon, width).
 FLAG_CASE = ("cartpole", 20, 33_793)
-# The contraction policy's levels (-DRQ_PSD_ROUNDING; 2, kCarry, is
-# shipped) and the cells at which "policy" times every kernel with it off
+# Kernel D's float32 value on one lane of this fixture (a per-lane noise
+# model) differed from the plain version's by more than the drift rule
+# allows at the contraction policy's kCarry: (model, horizon, width).
+DRIFT_CASE = ("cartpole", 30, 16_897)
+# The contraction policy's levels (-DRQ_PSD_ROUNDING; 1, kFactor, is
+# smallmat.cuh's default, 2, kCarry, candidate.cu's) and the cells at which "policy" times every kernel with it off
 # and on: chip_smoke.py phase 9's.
 PSD_LEVELS = (0, 1, 2)
 POLICY_CELLS = (("unicycle", 100, 262_144), ("quadrotor", 50, 16_384),
@@ -296,27 +332,34 @@ def sass_counts(lib, name: str):
             for f, c in counts.items() if name in names[f]}
 
 
-def _small_name(kernel):
-    """The few-lane kernel's function name (not the team kernel's)."""
-    return "riccati_small_kernel" if kernel == "riccati" else f"{kernel}_kernel"
+def _small_names(kernel):
+    """The function names of the kernel's n <= 4 design (not the team
+    kernel's); kernel D's also its one-solve-per-thread kernel, which a
+    baseline may run at n <= 4 (the shipped library instantiates it at no
+    shipped n)."""
+    return {"riccati": ("riccati_small_kernel",),
+            "riccati_folded": ("riccati_folded_small_kernel",
+                               "riccati_folded_kernel")}.get(
+        kernel, (f"{kernel}_kernel",))
 
 
 def _print_small_build(kernel, label, lib, rows, secs):
-    name = _small_name(kernel)
-    for fn, regs, stores, loads, stack in rows:
-        if name in fn:
-            print(f"small sweep {kernel} {label} {_build.short_name(fn)}: "
-                  f"{regs} registers, {stack} B stack frame, {stores} B spill"
-                  f" stores, {loads} B spill loads ({secs:.1f} s nvcc)",
+    for name in _small_names(kernel):
+        for fn, regs, stores, loads, stack in rows:
+            if name in fn:
+                print(f"small sweep {kernel} {label} "
+                      f"{_build.short_name(fn)}: {regs} registers, {stack} B "
+                      f"stack frame, {stores} B spill stores, {loads} B "
+                      f"spill loads ({secs:.1f} s nvcc)", flush=True)
+        counts = sass_counts(lib, name)
+        if counts is None:
+            print(f"small sweep {kernel} {label}: no cuobjdump, no SASS "
+                  "counts", flush=True)
+            return
+        for fn, c in counts.items():
+            print(f"small sweep {kernel} {label} SASS {fn}: "
+                  + ", ".join(f"{op} {n}" for op, n in c.items()),
                   flush=True)
-    counts = sass_counts(lib, name)
-    if counts is None:
-        print(f"small sweep {kernel} {label}: no cuobjdump, no SASS counts",
-              flush=True)
-        return
-    for fn, c in counts.items():
-        print(f"small sweep {kernel} {label} SASS {fn}: "
-              + ", ".join(f"{op} {n}" for op, n in c.items()), flush=True)
 
 
 def _diff(out, ref) -> str:
@@ -352,22 +395,31 @@ MODEL_DIMS = {"unicycle": (3, 2), "lqr": (2, 2), "cartpole": (4, 1),
               "quadrotor": (12, 4)}
 
 
-def _riccati_query(model, dtype, B, optimizing=True):
-    return riccati_cuda.block_shared_memory(*MODEL_DIMS[model], dtype, B,
-                                            optimizing)
+def _riccati_query(model, dtype, B, case_name):
+    return riccati_cuda.block_shared_memory(
+        *MODEL_DIMS[model], dtype, B, case_name == "riccati")
+
+
+def _folded_query(model, dtype, B, case_name):
+    return riccati_cuda.folded_block_shared_memory(
+        MODEL_DIMS[model][0], dtype, case_name == "riccati_folded", B)
 
 
 SMALL = {   # kernel: (variants, variant cells, width cells, launch, query)
     "candidate": (SMALL_VARIANTS, SMALL_CELLS, WIDTH_CELLS,
                   candidate_cuda.launch_candidate,
-                  lambda model, dtype, B: candidate_cuda.block_shared_memory(
-                      MODEL_IDS[model], dtype, B)),
+                  lambda model, dtype, B, _:
+                      candidate_cuda.block_shared_memory(
+                          MODEL_IDS[model], dtype, B)),
     "step": (STEP_VARIANTS, STEP_CELLS, STEP_WIDTH_CELLS,
              step_cuda.launch_step,
-             lambda model, dtype, B: step_cuda.block_shared_memory(
+             lambda model, dtype, B, _: step_cuda.block_shared_memory(
                  MODEL_IDS[model], dtype, B)),
     "riccati": (RICCATI_SMALL_VARIANTS, RICCATI_CELLS, RICCATI_WIDTH_CELLS,
-                LAUNCHES["riccati"], _riccati_query)}
+                LAUNCHES["riccati"], _riccati_query),
+    "riccati_folded": (RICCATI_FOLDED_SMALL_VARIANTS, RICCATI_FOLDED_CELLS,
+                       RICCATI_FOLDED_WIDTH_CELLS,
+                       LAUNCHES["riccati_folded"], _folded_query)}
 
 
 def _bound_entry(kernel, lib, suffix="f32"):
@@ -422,7 +474,7 @@ def small_sweep(kernel, device, baseline=None) -> None:
         torch.cuda.empty_cache()
     for (model, horizon, B), case_name in ((c, p) for c in width_cells
                                            for p in passes):
-        nbytes, solves, lanes = query(model, f32, B)
+        nbytes, solves, lanes = query(model, f32, B, case_name)
         case = kernel_check.timing_cases(model, horizon, B, f32,
                                          device)[case_name]()
         args = case[1]()
@@ -449,8 +501,10 @@ def small_sweep(kernel, device, baseline=None) -> None:
         print(line, flush=True)
         del case, args, shipped
         torch.cuda.empty_cache()
-    flag_check(kernel, device, {name: entries[name]
-                                for name in _flag_units(kernel, baseline)})
+    builds = {name: entries[name] for name in _flag_units(kernel, baseline)}
+    flag_check(kernel, device, builds)
+    if kernel == "riccati_folded":
+        drift_check(device, builds)
 
 
 def _flag_units(kernel, baseline=None):
@@ -469,16 +523,18 @@ def _flag_units(kernel, baseline=None):
 
 
 def flags_sweep(device, baseline=None) -> None:
-    """The flag check of kernels C, B and A alone (``flags``)."""
+    """The flag check of kernels C, B, A and D alone (``flags``)."""
     units = {(kernel, name): unit for kernel in SMALL
              for name, unit in _flag_units(kernel, baseline).items()}
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
         built = dict(zip(units, pool.map(
             lambda u: _compile(u[0], u[1], "f32", u[2]), units.values())))
     for kernel in SMALL:
-        flag_check(kernel, device, {
-            name: _bound_entry(kernel, built[k, name][0])
-            for k, name in built if k == kernel})
+        builds = {name: _bound_entry(kernel, built[k, name][0])
+                  for k, name in built if k == kernel}
+        flag_check(kernel, device, builds)
+        if kernel == "riccati_folded":
+            drift_check(device, builds)
 
 
 FLAG_INPUTS = {   # kernel: (inputs, plain version, layout, launch)
@@ -491,14 +547,23 @@ FLAG_INPUTS = {   # kernel: (inputs, plain version, layout, launch)
              step_cuda.launch_step),
     "riccati": (None, lambda ap, theta, mu: riccati_cuda.riccati_bank_plain(
         ap, theta, mu, slim=True), riccati_cuda.riccati_layout,
-        LAUNCHES["riccati"])}
+        LAUNCHES["riccati"]),
+    "riccati_folded": (kernel_check.folded_inputs,
+                       riccati_cuda.riccati_bank_folded_plain,
+                       riccati_cuda.folded_layout,
+                       riccati_cuda.launch_folded)}
 
 
 def _flag_args(kernel, device):
     """At ``FLAG_CASE``: (the float32 arguments of the kernel's plain
-    version, their float64 twins, θ); kernel A's slim optimizing pass."""
+    version, their float64 twins, θ); kernel A's slim optimizing pass,
+    kernel D's shared noise model."""
     model, horizon, B = FLAG_CASE
     f32 = torch.float32
+    if kernel == "riccati_folded":
+        fa, theta = kernel_check.folded_inputs(model, horizon, B, f32, device)
+        return ((fa, theta), (type(fa)(*map(kernel_check._f64, fa)),
+                              kernel_check._f64(theta)), theta)
     if kernel == "riccati":
         ap, _, _, theta, mu = kernel_check._riccati_fixture(
             model, horizon, B, f32, device, True)
@@ -530,11 +595,65 @@ def flag_check(kernel, device, builds) -> None:
             if not hasattr(got, flag):
                 continue
             g, r = getattr(got, flag), getattr(ref, flag)
-            lanes = torch.nonzero(g != r).flatten().tolist()
+            lanes = torch.nonzero(g != r).flatten().tolist()[:8]
+            margins = (kernel_check.folded_margins(*args64, lanes)
+                       if kernel == "riccati_folded" and lanes
+                       else [None] * len(lanes))
             print(f"flag check {kernel} {model} T={horizon} B={B} f32, "
-                  f"{name}: {len(lanes)} lanes' {flag} differ from float64's"
-                  + "".join(f", lane {b} (θ {float(theta[b]):g}, "
-                            f"{bool(g[b])})" for b in lanes[:8]), flush=True)
+                  f"{name}: {int((g != r).sum())} lanes' {flag} differ from "
+                  "float64's" + "".join(
+                      f", lane {b} (θ {float(theta[b]):g}, {bool(g[b])}"
+                      + ("" if m is None else
+                         f"; float64 M's smallest eigenvalue {m:.3e} of "
+                         "W⁻¹'s scale") + ")"
+                      for b, m in zip(lanes, margins)), flush=True)
+    kernel_check.clear_caches()
+
+
+def drift_check(device, builds) -> None:
+    """Kernel D at ``DRIFT_CASE`` in float32, with a shared and a per-lane
+    noise model: for the shipped build, each of ``builds`` (name: entry
+    point) and the plain version, the largest error of the value against
+    the float64 plain version on the lanes that did not fail, its three
+    worst lanes (θ, error, float64 value), and the largest ratio of
+    |kernel − plain| to what ``kernel_check``'s drift rule allows."""
+    model, horizon, B = DRIFT_CASE
+    for shared_w in (True, False):
+        fa, theta = kernel_check.folded_inputs(model, horizon, B,
+                                               torch.float32, device,
+                                               shared_w)
+        ref = riccati_cuda.riccati_bank_folded_plain(
+            type(fa)(*map(kernel_check._f64, fa)), kernel_check._f64(theta))
+        plain = riccati_cuda.riccati_bank_folded_plain(fa, theta)
+        layout = riccati_cuda.folded_layout(fa, theta)
+        outs = {"shipped": riccati_cuda.launch_folded(*layout),
+                **{name: riccati_cuda.launch_folded(*layout, entry)
+                   for name, entry in builds.items()}, "plain": plain}
+        ok = ~(plain.m_fail | ref.m_fail)
+        fa64 = type(fa)(*map(kernel_check._f64, fa))
+        for name, got in outs.items():
+            err = torch.where(ok, (got.value.double() - ref.value).abs(),
+                              torch.zeros_like(ref.value))
+            worst = err.argsort(descending=True)[:3].tolist()
+            margins = kernel_check.folded_margins(
+                fa64, kernel_check._f64(theta), worst)
+            try:
+                ratio = "{:.3f}".format(kernel_check._compare(
+                    got, plain, ref, theta, [("value", "value")],
+                    torch.float32).ratio)
+            except AssertionError as e:
+                ratio = f"outside it ({e})"
+            print(f"drift check riccati_folded {model} T={horizon} B={B} "
+                  f"f32 {'shared' if shared_w else 'per-lane'} W, {name}: "
+                  f"max |value - float64| {float(err.max()):.3e}; worst "
+                  "lanes " + ", ".join(
+                      f"{b} (θ {float(theta[b]):g}, {float(err[b]):.3e} of "
+                      f"{float(ref.value[b]):.6e}, float64 M's smallest "
+                      f"eigenvalue {m:.3e} of W⁻¹'s scale)"
+                      for b, m in zip(worst, margins))
+                  + f"; against the plain version, drift rule: {ratio}",
+                  flush=True)
+        del fa, fa64, theta, ref, plain, layout, outs
     kernel_check.clear_caches()
 
 
@@ -585,10 +704,8 @@ def main(argv=()) -> int:
     if (kernel not in LAUNCHES and kernel not in ("policy", "flags")
             or rest):
         print("usage: python -m ratilqr_tpu_torch.team_sweep "
-              "[candidate [--baseline DIR]|step [--baseline DIR]|riccati "
-              "[--baseline DIR]|riccati_folded|policy|flags [--baseline "
-              "DIR]]",
-              file=sys.stderr)
+              "[candidate|step|riccati|riccati_folded [--baseline DIR]|"
+              "policy|flags [--baseline DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("team_sweep: no CUDA device", file=sys.stderr)

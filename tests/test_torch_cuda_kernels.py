@@ -2,9 +2,9 @@
 LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
 at its first use), kernels A's, B's, C's and D's one-solve-per-team designs
 on the quadrotor at the edges of their blocks (A also at B=262,144),
-kernels A's, B's and C's few-lane designs at n <= 4 at widths that take
-each of their lanes a solve (4 and 1), their fail flags on the
-near-breakdown cartpole fixture, A and B on the n=12 h_fail fixture and on
+kernels A's, B's, C's and D's few-lane designs at n <= 4 at widths that
+take each of their lanes a solve (4 and 1), their fail flags on the
+near-breakdown cartpole fixture (D's on the lanes float32 resolves), A and B on the n=12 h_fail fixture and on
 each small model's, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
@@ -388,18 +388,54 @@ def test_riccati_folded_kernel_matches_plain(device, model, T, B, shared_w,
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_riccati_folded_design_follows_the_shape(device, dtype):
-    """One solve per team, its working set in dynamic shared memory (more
-    with a per-lane noise model), at the quadrotor's n=12 and at n=6, built
-    at its first use; one solve per thread at the small shapes."""
-    from ratilqr_tpu_torch.ops.riccati_cuda import folded_block_shared_memory
+    """At the small shipped n one solve per team of 4 lanes, 32 a block,
+    up to SMs x 128 lanes (512 threads an SM, the rule of kernels A, B and
+    C), each step read into registers, no shared memory, and one solve per
+    thread, 128 a block, above; one solve per team, its working set in
+    dynamic shared memory (more with a per-lane noise model), at the
+    quadrotor's n=12 and at n=6, built at its first use."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import (
+        folded_block_shared_memory, folded_first_widths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n in (3, 2, 4):
         for w_shared in (True, False):
-            assert folded_block_shared_memory(n, dtype, w_shared)[0] == 0
+            assert folded_first_widths(n, dtype, w_shared) == {
+                4: 1, 1: sms * 128 + 1}
+            for B in (1, sms * 128, sms * 128 + 1, 262_144):
+                assert folded_block_shared_memory(n, dtype, w_shared, B) == (
+                    (0, 32, 4) if B <= sms * 128 else (0, 128, 1))
     shared, teams, lanes = folded_block_shared_memory(12, dtype)
     per_lane = folded_block_shared_memory(12, dtype, False)[0]
     assert lanes in (16, 32) and teams * lanes % 32 == 0
     assert 0 < shared < per_lane <= 232_448   # a block's limit on the H100
     assert folded_block_shared_memory(6, dtype)[0] > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shared_w", [True, False])
+@pytest.mark.parametrize("model,T", [("unicycle", 20), ("lqr", 7),
+                                     ("cartpole", 30)])
+def test_riccati_folded_small_kernel_at_band_widths(device, model, T,
+                                                    shared_w, dtype):
+    """Kernel D at n <= 4 at the first width of its launch that takes 1
+    lane a solve."""
+    from ratilqr_tpu_torch.ops.riccati_cuda import folded_first_widths
+    B = folded_first_widths(SMALL_A[model][0], dtype, shared_w)[1]
+    try:
+        kc.check_riccati_folded(model, T, B, dtype, device, shared_w)
+    finally:
+        kc.clear_caches()
+
+
+def test_riccati_folded_near_breakdown_flag_cartpole(device):
+    """Kernel D on the cartpole at T=20, B=33,793 in float32 (one lane a
+    solve): its m_fail equals the float64 plain version's on every lane
+    that float32 resolves (``kernel_check.check_folded_flags``); of the
+    others, at most one in 10,000, none is compared."""
+    try:
+        kc.check_folded_flags(*FLAG_CASE, device)
+    finally:
+        kc.clear_caches()
 
 
 def test_fold_path_bank_matches_fused_candidate_bank(device):

@@ -153,6 +153,31 @@ def test_team_sweep_small_variants_cover_the_shipped_kernels(kernel):
     assert units["policy2"][2] == ["-DRQ_PSD_ROUNDING=2"]
 
 
+def test_team_sweep_small_variants_cover_kernel_d():
+    """Each few-lane variant of kernel D takes 1 or 4 lanes a solve in
+    whole warps of solves, the variants hold both kernels the shipped
+    launch picks ((4, 128), and (1, 128): one solve per thread), both
+    noise models are timed, the
+    width cells hold RAT iLQR's and the CE generation's widths and the
+    edges of the 4-lane band on 132 SMs, and the flag check builds every
+    level of the contraction policy."""
+    from ratilqr_tpu_torch import team_sweep
+    variants, cells, width_cells, _, _ = team_sweep.SMALL["riccati_folded"]
+    for K, threads in variants:
+        assert K in (1, 4) and threads % 32 == 0
+        assert team_sweep._small_defines("riccati_folded", (K, threads)) == [
+            f"-DRQ_SMALL_LANES={K}", f"-DRQ_SMALL_THREADS={threads}",
+            f"-DRQ_WIDE_THREADS={threads}"]
+    assert {(4, 128), (1, 128)} <= set(variants)
+    assert team_sweep.PASSES["riccati_folded"] == ("riccati_folded",
+                                                   "riccati_folded_lane_w")
+    assert {("unicycle", 100, 10), ("unicycle", 100, 16_384)} <= set(cells)
+    widths = {B for _, _, B in width_cells}
+    assert {10, 16_384, 132 * 128, 132 * 128 + 1} <= widths
+    assert team_sweep._flag_units("riccati_folded").keys() == {
+        "no_fma", "policy0", "policy1", "policy2"}
+
+
 def test_team_sweep_small_variants_cover_kernel_a():
     """Each few-lane variant of kernel A takes 1 or 4 lanes a solve in
     whole warps of solves and reads its steps into registers (form 0) or
