@@ -239,18 +239,27 @@ def _bind(lib: ctypes.CDLL, suffixes) -> ctypes.CDLL:
     return lib
 
 
+def _load(build_lib: Callable[[], Path], suffixes) -> ctypes.CDLL:
+    """Build (if needed) and load a library inside span ``build``;
+    counts ``library_loads`` (:mod:`ratilqr_tpu_torch.utils.profiling`)."""
+    from ratilqr_tpu_torch.utils import profiling
+    with profiling.span("build"):
+        lib = _bind(ctypes.CDLL(str(build_lib())), suffixes)
+    profiling.counters["library_loads"] += 1
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
-    return _bind(ctypes.CDLL(str(build())), _SUFFIXES)
+    return _load(build, _SUFFIXES)
 
 
 @functools.lru_cache(maxsize=None)
 def shape_library(kernel: str, shape: tuple, suffix: str) -> ctypes.CDLL:
     """Build (if needed) and load kernel ``kernel`` for one shape and
     working type, once per process (:func:`build_shape`)."""
-    return _bind(ctypes.CDLL(str(build_shape(kernel, shape, suffix))),
-                 (suffix,))
+    return _load(lambda: build_shape(kernel, shape, suffix), (suffix,))
 
 
 def entry(kernel: str, dtype, shape: tuple = (), name: str = ""):

@@ -22,6 +22,7 @@ import torch
 from ratilqr_tpu_torch.ops import _build, riccati_cuda
 from ratilqr_tpu_torch.ops.approx import NoiseModel, approximate_folded
 from ratilqr_tpu_torch.ops.tile_model import device_model
+from ratilqr_tpu_torch.utils.profiling import span, spanned
 
 Tensor = torch.Tensor
 KERNEL = "candidate"
@@ -46,6 +47,7 @@ def candidate_bank_plain(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
                         x_ref, l_cand, L, mu, theta, noise)
 
 
+@spanned("candidate_bank")
 def candidate_bank(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
                    mu: Tensor, theta: Tensor,
                    noise: NoiseModel) -> CandidateOut:
@@ -89,9 +91,10 @@ def candidate_layout(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
                              f"{tuple(x.shape)} {x.dtype} on {x.device}, "
                              f"expected {shape} {dtype} on {device}")
     lm = _build.lane_minor
-    ins = [lm(x_ref), lm(l_cand), lm(L), noise.W.contiguous(),
-           noise.W_inv.contiguous(), noise.logdet_W.contiguous(),
-           theta.contiguous(), mu.contiguous()]
+    with span("layout"):
+        ins = [lm(x_ref), lm(l_cand), lm(L), noise.W.contiguous(),
+               noise.W_inv.contiguous(), noise.logdet_W.contiguous(),
+               theta.contiguous(), mu.contiguous()]
     return tm, ins
 
 
@@ -124,7 +127,7 @@ def launch_candidate(tm, ins, entry=None) -> CandidateOut:
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
     launch = entry or _build.entry(KERNEL, dtype)
-    with torch.cuda.device(device):
+    with span("launch.candidate"), torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
                     *map(_build.ptr, (x_scratch, value, m_fail)),
                     _build.stream_of(value))

@@ -22,6 +22,7 @@ import torch
 
 from ratilqr_tpu_torch.ops import smallmat
 from ratilqr_tpu_torch.ops.smallmat import sym
+from ratilqr_tpu_torch.utils.profiling import counters, host_sync, span
 
 Tensor = torch.Tensor
 
@@ -205,7 +206,9 @@ def mu_restart_loop(run, mu: Tensor, delta: Tensor, mu_min: float,
     restarts while its H check failed, its M check did not, and it has
     restarted fewer than ``max_restarts`` times; only restarting lanes
     escalate μ/Δ and take the new payload.  Lanes outside ``active`` never
-    restart.  Returns ``(*payload, mu, delta, failed)``.
+    restart.  Returns ``(*payload, mu, delta, failed)``.  Each re-run is a
+    span ``mu_restart`` and counts ``mu_restarts``; the check is host sync
+    ``mu.need`` (:mod:`ratilqr_tpu_torch.utils.profiling`).
     """
     out = run(mu)
     payload, m_fail, h_fail = out[:-2], out[-2], out[-1]
@@ -214,12 +217,14 @@ def mu_restart_loop(run, mu: Tensor, delta: Tensor, mu_min: float,
         need = h_fail & ~m_fail & (k < max_restarts)
         if active is not None:
             need = need & active
-        if not bool(need.any()):
+        if not host_sync("mu.need", bool, need.any()):
             break
+        counters["mu_restarts"] += 1
         mu_n, delta_n = increase_mu_delta(mu, delta, mu_min, delta_0)
         mu = torch.where(need, mu_n, mu)
         delta = torch.where(need, delta_n, delta)
-        out = run(mu)
+        with span("mu_restart"):
+            out = run(mu)
         payload = select(need, tuple(out[:-2]), tuple(payload))
         m_fail = torch.where(need, out[-2], m_fail)
         h_fail = torch.where(need, out[-1], h_fail)

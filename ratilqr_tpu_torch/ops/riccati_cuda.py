@@ -38,6 +38,7 @@ import torch
 
 from ratilqr_tpu_torch.ops import _build
 from ratilqr_tpu_torch.ops.riccati import _riccati_core, _riccati_folded_core
+from ratilqr_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 KERNEL = "riccati"
@@ -153,15 +154,16 @@ def riccati_layout(approx, theta: Tensor, mu: Tensor,
                              f"{dtype} on {device}")
 
     lm = _build.lane_minor
-    noise = ((approx.W.contiguous(), approx.W_inv.contiguous(),
-              approx.logdet_W.contiguous()) if w_shared else
-             (lm(approx.W), lm(approx.W_inv), lm(approx.logdet_W)))
-    ins = [lm(approx.q), lm(approx.q_vec), lm(approx.Q), lm(approx.r),
-           lm(approx.R), lm(approx.P), lm(approx.A), lm(approx.B), *noise,
-           approx.q_term.contiguous(), lm(approx.q_vec_term),
-           lm(approx.Q_term), theta.contiguous(), mu.contiguous(),
-           None if L_in is None else lm(L_in),
-           None if dl_in is None else lm(dl_in)]
+    with span("layout"):
+        noise = ((approx.W.contiguous(), approx.W_inv.contiguous(),
+                  approx.logdet_W.contiguous()) if w_shared else
+                 (lm(approx.W), lm(approx.W_inv), lm(approx.logdet_W)))
+        ins = [lm(approx.q), lm(approx.q_vec), lm(approx.Q), lm(approx.r),
+               lm(approx.R), lm(approx.P), lm(approx.A), lm(approx.B),
+               *noise, approx.q_term.contiguous(), lm(approx.q_vec_term),
+               lm(approx.Q_term), theta.contiguous(), mu.contiguous(),
+               None if L_in is None else lm(L_in),
+               None if dl_in is None else lm(dl_in)]
     return ins, (n, m, w_shared)
 
 
@@ -242,7 +244,7 @@ def launch_riccati(ins, shape, slim: bool, entry=None):
     outs = [value, s, s_vec, S, g, G, H, L, dl, m_fail, h_fail]
 
     launch = entry or _entry(KERNEL, dtype, n, m)
-    with torch.cuda.device(device):
+    with span("launch.riccati"), torch.cuda.device(device):
         rc = launch(n, m, Bn, T, int(optimizing), int(slim), int(w_shared),
                     int(has_dl), *map(_build.ptr, ins),
                     *map(_build.ptr, outs), _build.stream_of(value))
@@ -307,12 +309,13 @@ def folded_layout(fa, theta: Tensor):
                              f"{tuple(x.shape)} {x.dtype} on {x.device}, "
                              f"expected {shape} {dtype} on {device}")
     lm = _build.lane_minor
-    noise = ((fa.W.contiguous(), fa.W_inv.contiguous(),
-              fa.logdet_W.contiguous()) if w_shared else
-             (lm(fa.W), lm(fa.W_inv), lm(fa.logdet_W)))
-    ins = (lm(fa.q), lm(fa.q_vec), lm(fa.Q), lm(fa.A), *noise,
-           fa.q_term.contiguous(), lm(fa.q_vec_term), lm(fa.Q_term),
-           theta.contiguous())
+    with span("layout"):
+        noise = ((fa.W.contiguous(), fa.W_inv.contiguous(),
+                  fa.logdet_W.contiguous()) if w_shared else
+                 (lm(fa.W), lm(fa.W_inv), lm(fa.logdet_W)))
+        ins = (lm(fa.q), lm(fa.q_vec), lm(fa.Q), lm(fa.A), *noise,
+               fa.q_term.contiguous(), lm(fa.q_vec_term), lm(fa.Q_term),
+               theta.contiguous())
     return ins, w_shared
 
 
@@ -354,7 +357,7 @@ def launch_folded(ins, w_shared: bool, entry=None) -> BankFolded:
     value = torch.empty(Bn, dtype=ins[0].dtype, device=ins[0].device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=value.device)
     launch = entry or _folded_entry(KERNEL_FOLDED, value.dtype, n)
-    with torch.cuda.device(value.device):
+    with span("launch.riccati_folded"), torch.cuda.device(value.device):
         rc = launch(n, Bn, T, int(w_shared), *map(_build.ptr, ins),
                     _build.ptr(value), _build.ptr(m_fail),
                     _build.stream_of(value))

@@ -17,6 +17,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ratilqr_tpu_torch.problems import GenerativeProblem, RiskSensitiveProblem
+from ratilqr_tpu_torch.utils.profiling import spanned
 
 Tensor = torch.Tensor
 
@@ -53,6 +54,7 @@ def feedback_control(l_t: Tensor, L_t: Tensor, x: Tensor,
     return l_t + (L_t * (x - x_ref_t).unsqueeze(-2)).sum(-1)
 
 
+@spanned("rollout_open_loop")
 def rollout_open_loop(problem: RiskSensitiveProblem, x0: Tensor,
                       u_traj: Tensor) -> Tensor:
     """Noiseless open-loop rollout ``x_{t+1} = f(x_t, u_t)``
@@ -64,6 +66,7 @@ def rollout_open_loop(problem: RiskSensitiveProblem, x0: Tensor,
     return torch.stack(xs, 1)
 
 
+@spanned("rollout_open_loop_with_jac")
 def rollout_open_loop_with_jac(problem: RiskSensitiveProblem, x0: Tensor,
                                u_traj: Tensor
                                ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -124,6 +127,7 @@ def integrate_cost(problem: RiskSensitiveProblem, x_traj: Tensor,
     return torch.stack(stage, 1).sum(1) + total
 
 
+@spanned("rollout_feedback")
 def rollout_feedback(problem: RiskSensitiveProblem, x_ref: Tensor,
                      l_traj: Tensor, L_traj: Tensor
                      ) -> Tuple[Tensor, Tensor]:
@@ -141,6 +145,7 @@ def rollout_feedback(problem: RiskSensitiveProblem, x_ref: Tensor,
     return torch.stack(xs, 1), torch.stack(us, 1)
 
 
+@spanned("rollout_feedback_with_jac")
 def rollout_feedback_with_jac(problem: RiskSensitiveProblem, x_ref: Tensor,
                               l_traj: Tensor, L_traj: Tensor
                               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:

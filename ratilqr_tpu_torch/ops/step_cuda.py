@@ -27,6 +27,7 @@ from ratilqr_tpu_torch.ops.approx import NoiseModel, approximate_model
 from ratilqr_tpu_torch.ops.riccati import MAX_MU_RESTARTS, mu_restart_loop
 from ratilqr_tpu_torch.ops.rollout import rollout_open_loop_with_jac
 from ratilqr_tpu_torch.ops.tile_model import device_model
+from ratilqr_tpu_torch.utils.profiling import span, spanned
 
 Tensor = torch.Tensor
 KERNEL = "step"
@@ -91,8 +92,10 @@ def step_layout(problem, x0: Tensor, l: Tensor, theta: Tensor, mu: Tensor,
                              f"{x.dtype} on {x.device}, expected {shape} "
                              f"{dtype} on {device}")
     lm = _build.lane_minor
-    ins = [lm(l), lm(x0), noise.W.contiguous(), noise.W_inv.contiguous(),
-           noise.logdet_W.contiguous(), theta.contiguous(), mu.contiguous()]
+    with span("layout"):
+        ins = [lm(l), lm(x0), noise.W.contiguous(), noise.W_inv.contiguous(),
+               noise.logdet_W.contiguous(), theta.contiguous(),
+               mu.contiguous()]
     return tm, ins
 
 
@@ -129,7 +132,7 @@ def launch_step(tm, ins, entry=None) -> StepOut:
     h_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
     launch = entry or _build.entry(KERNEL, dtype)
-    with torch.cuda.device(device):
+    with span("launch.step"), torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
                     *map(_build.ptr, (x, value, L, dl, m_fail, h_fail)),
                     _build.stream_of(value))
@@ -139,6 +142,7 @@ def launch_step(tm, ins, entry=None) -> StepOut:
                    dl.movedim(-1, 0), m_fail, h_fail)
 
 
+@spanned("step_optimize")
 def step_optimize(problem, x0: Tensor, l: Tensor, *, theta: Tensor,
                   mu: Tensor, delta: Tensor, mu_min: float, delta_0: float,
                   noise: NoiseModel, max_restarts: int = MAX_MU_RESTARTS,

@@ -15,6 +15,12 @@ a host loop over per-lane masks with one device sync per round:
     ``ls_chunk = c`` evaluates c rungs of the ε ladder per round;
   - adaptive ε_init: the restore loop with its underflow guard ``e > 0``.
 
+Each of those syncs runs through :func:`~ratilqr_tpu_torch.utils.profiling.
+host_sync` at its site (``bank.active``, ``ls.running``, ``eps.restore``;
+the μ-restarts' ``mu.need``), and the bank opens the spans ``bank``,
+``initialize``, ``iteration``, ``line_search``, ``ls_round`` and
+``eps_restore`` (:func:`~ratilqr_tpu_torch.utils.profiling.span`).
+
 Lanes whose results a round discards (finished lanes, lanes whose
 optimizing DP failed) are left out of the inner loops, which changes no
 result.  On a CUDA device the DP passes run kernel A (default config), the
@@ -46,6 +52,8 @@ from ratilqr_tpu_torch.ops.rollout import (rollout_feedback,
 from ratilqr_tpu_torch.ops.step_cuda import step_optimize
 from ratilqr_tpu_torch.problems import RiskSensitiveProblem, problem_device
 from ratilqr_tpu_torch.utils.numerics import isapprox, max_control_deviation
+from ratilqr_tpu_torch.utils.profiling import (counters, host_sync, span,
+                                               spanned)
 
 Tensor = torch.Tensor
 
@@ -99,6 +107,7 @@ def _push_hist(hist: Tensor, count: Tensor, valid: Tensor, eps: Tensor,
     return hist, new_count
 
 
+@spanned("line_search")
 def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
                 state: ILEQGState, x_ref: Tensor, dl: Tensor, theta: Tensor,
                 noise: NoiseModel, active: Optional[Tensor] = None
@@ -112,6 +121,13 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
     Trial for trial it equals the sequential search: rungs past a lane's
     first take or past its ``ls_max_trials`` budget are neither counted nor
     recorded.  Only the running lanes are evaluated.
+
+    Counts ``ls_rounds``, ``candidate_lanes`` (c·R, the candidates a round
+    evaluates) and ``accepted_lanes`` in :data:`~ratilqr_tpu_torch.utils.
+    profiling.counters`.  Every running lane has made as many trials as
+    every other, so all lanes that leave a round that leaves trials in the
+    budget took a rung: ``accepted_lanes`` counts them from the rounds'
+    widths, with no sync, and leaves out the round that spends the budget.
     """
     lam = config.lam
     c = config.ls_chunk
@@ -148,48 +164,60 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
     eps_acc = torch.zeros_like(eps)
     value_c = state.value.clone()
     hist, hist_n = state.eps_hist.clone(), state.eps_count.clone()
+    trials, R_prev = 0, 0   # the running lanes' trials so far, last width
     while True:
         running = ~accepted & (count < config.ls_max_trials)
         if active is not None:
             running = running & active
-        r = running.nonzero().squeeze(1)
+        r = host_sync("ls.running", torch.nonzero, running).squeeze(1)
         R = r.numel()
+        if 0 < trials < config.ls_max_trials:
+            counters["accepted_lanes"] += R_prev - R
         if R == 0:
             break
-        ladder = eps[r, None] * rungs                          # (R, c)
-        every = c == 1 and R == Bn
-        values, evaluated = eval_candidate(
-            None if every else r.repeat_interleave(c), ladder.reshape(-1))
-        values, evaluated = values.reshape(R, c), evaluated.reshape(R, c)
-        value0, cnt = state.value[r, None], count[r]
+        counters["ls_rounds"] += 1
+        counters["candidate_lanes"] += c * R
+        trials, R_prev = min(trials + c, config.ls_max_trials), R
+        with span("ls_round"):
+            ladder = eps[r, None] * rungs                          # (R, c)
+            every = c == 1 and R == Bn
+            values, evaluated = eval_candidate(
+                None if every else r.repeat_interleave(c),
+                ladder.reshape(-1))
+            values = values.reshape(R, c)
+            evaluated = evaluated.reshape(R, c)
+            value0, cnt = state.value[r, None], count[r]
 
-        in_budget = cnt[:, None] + steps < config.ls_max_trials
-        accept = evaluated & (isapprox(values, value0) | (values < value0))
-        forced = evaluated & ~accept & (ladder * lam < config.eps_min)
-        take = (accept | forced) & in_budget
-        has_take = take.any(1)
-        first = take.to(torch.int8).argmax(1, keepdim=True)   # 0 if none
-        n_budget = torch.clamp(config.ls_max_trials - cnt, max=c)
-        n_exec = torch.where(has_take, first[:, 0].to(cnt.dtype) + 1,
-                             n_budget)
+            in_budget = cnt[:, None] + steps < config.ls_max_trials
+            accept = evaluated & (isapprox(values, value0)
+                                  | (values < value0))
+            forced = evaluated & ~accept & (ladder * lam < config.eps_min)
+            take = (accept | forced) & in_budget
+            has_take = take.any(1)
+            first = take.to(torch.int8).argmax(1, keepdim=True)   # 0 if none
+            n_budget = torch.clamp(config.ls_max_trials - cnt, max=c)
+            n_exec = torch.where(has_take, first[:, 0].to(cnt.dtype) + 1,
+                                 n_budget)
 
-        h, hn = hist[r], hist_n[r]
-        for j in range(c):   # history pushes in rung order
-            h, hn = _push_hist(h, hn, evaluated[:, j] & (j < n_exec),
-                               ladder[:, j], values[:, j] - value0[:, 0])
-        hist[r], hist_n[r] = h, hn
+            h, hn = hist[r], hist_n[r]
+            for j in range(c):   # history pushes in rung order
+                h, hn = _push_hist(h, hn, evaluated[:, j] & (j < n_exec),
+                                   ladder[:, j], values[:, j] - value0[:, 0])
+            hist[r], hist_n[r] = h, hn
 
-        eps_first = ladder.gather(1, first)[:, 0]
-        accept_first = accept.gather(1, first)[:, 0]
-        eps_next = torch.where(
-            has_take, torch.where(accept_first, eps_first, eps_first * lam),
-            eps[r] * lam ** n_exec.to(dtype))
-        eps_acc[r] = torch.where(has_take, eps_first, eps_acc[r])
-        value_c[r] = torch.where(has_take, values.gather(1, first)[:, 0],
-                                 value_c[r])
-        accepted[r] = accepted[r] | has_take
-        eps[r] = eps_next
-        count[r] = cnt + n_exec
+            eps_first = ladder.gather(1, first)[:, 0]
+            accept_first = accept.gather(1, first)[:, 0]
+            eps_next = torch.where(
+                has_take,
+                torch.where(accept_first, eps_first, eps_first * lam),
+                eps[r] * lam ** n_exec.to(dtype))
+            eps_acc[r] = torch.where(has_take, eps_first, eps_acc[r])
+            value_c[r] = torch.where(has_take,
+                                     values.gather(1, first)[:, 0],
+                                     value_c[r])
+            accepted[r] = accepted[r] | has_take
+            eps[r] = eps_next
+            count[r] = cnt + n_exec
 
     # Re-materialize the accepted candidate's realized controls (lanes that
     # accepted nothing have eps_acc = 0 and keep the pre-search state).
@@ -198,16 +226,17 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
     d_n = max_control_deviation(state.l, u_n)
 
     if config.adaptive_eps_init:  # ileqg.jl:582-591
-        grown = torch.clamp(eps / lam, max=config.eps_init)
-        # Bring ε back above ε_min; e > 0 guards f32 underflow to 0.
-        restored = eps
-        while True:
-            low = (restored < config.eps_min) & (restored > 0)
-            if not bool(low.any()):
-                break
-            restored = torch.where(low, restored / lam, restored)
-        restored = torch.clamp(restored, min=config.eps_min)
-        eps_init_next = torch.where(count == 1, grown, restored)
+        with span("eps_restore"):
+            grown = torch.clamp(eps / lam, max=config.eps_init)
+            # Bring ε back above ε_min; e > 0 guards f32 underflow to 0.
+            restored = eps
+            while True:
+                low = (restored < config.eps_min) & (restored > 0)
+                if not host_sync("eps.restore", bool, low.any()):
+                    break
+                restored = torch.where(low, restored / lam, restored)
+            restored = torch.clamp(restored, min=config.eps_min)
+            eps_init_next = torch.where(count == 1, grown, restored)
     else:
         eps_init_next = state.eps_init_cur
 
@@ -246,6 +275,7 @@ def step(problem: RiskSensitiveProblem, config: ILEQGConfig,
         failed=state.failed | ls_state.failed)
 
 
+@spanned("initialize")
 def initialize(problem: RiskSensitiveProblem, config: ILEQGConfig,
                x0: Tensor, u_init: Tensor, theta: Tensor,
                noise: NoiseModel) -> ILEQGState:
@@ -293,12 +323,16 @@ def solve_bank(problem: RiskSensitiveProblem, config: ILEQGConfig,
     state = initialize(problem, config, x0, u_init, theta, noise)
     while True:
         active = ~state.done
-        if not bool(active.any()):
+        if not host_sync("bank.active", bool, active.any()):
             break
-        new = step(problem, config, state, theta, x0, noise, active)
-        converged = (new.d_current < config.d_tol) & (new.mu <= config.mu_min)
-        done = converged | (new.iterations >= config.iter_max) | new.failed
-        state = select(active, new._replace(done=done), state)
+        counters["iterations"] += 1
+        with span("iteration"):
+            new = step(problem, config, state, theta, x0, noise, active)
+            converged = ((new.d_current < config.d_tol)
+                         & (new.mu <= config.mu_min))
+            done = (converged | (new.iterations >= config.iter_max)
+                    | new.failed)
+            state = select(active, new._replace(done=done), state)
         if config.verbose:
             print(f"--iLEQG round: {int(active.sum())} active lanes, "
                   f"max iterations {int(state.iterations.max())}")
@@ -343,7 +377,9 @@ def make_batched_solver(problem: RiskSensitiveProblem, config: ILEQGConfig,
     dev = torch.device(device) if device is not None else problem_device(
         problem)
 
+    @spanned("bank")
     def bank(x0, u_init, thetas) -> ILEQGResult:
+        counters["bank_calls"] += 1
         x0 = torch.as_tensor(x0, device=dev)
         dtype = x0.dtype
         u_init = torch.as_tensor(u_init, dtype=dtype, device=dev)

@@ -1,14 +1,26 @@
 """Profiling and timing: steady-state timing that waits for the device,
-named phase timers, ``torch.profiler`` traces, counting the host's waits
-on the device, and the device's busy time.
+``torch.profiler`` traces, the program's spans and counters, counting the
+host's waits on the device, and the device's busy time.
 
 Counterpart of :mod:`ratilqr_tpu.utils.profiling` (``sync``,
-``time_fn``, ``trace``, ``PhaseTimer``), plus :func:`count_host_syncs`
-and :func:`device_busy`.
+``time_fn``, ``trace``), plus :func:`span` (:func:`spanned`),
+:data:`counters`, :func:`host_sync`, :func:`count_host_syncs` and
+:func:`device_busy`.
+
+The program opens spans named ``rq.<name>`` at its layer boundaries (the
+solver bank, the stages, the kernel wrappers' layout copies and launches,
+the rollouts, the kernel build) while a ``torch.profiler`` records, so they
+lie on the profiler's clock beside the device trace; otherwise a span is
+one check.  :data:`counters` always counts: bank calls, iterations,
+line-search rounds and lanes, μ-restarts, library loads and each host
+sync by its site (``sync.<site>``).  Kernel launches are counted in
+``ops._build.launch_counts``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
 import statistics
 import time
@@ -54,7 +66,8 @@ def time_fn(fn: Callable, *args, warmup: int = 1, reps: int = 5,
 def trace(log_dir: str):
     """Record a ``torch.profiler`` trace of the block (host activity, and
     the card's where CUDA is available) into ``<log_dir>/trace.json``
-    (Chrome trace format; open it in Perfetto)::
+    (Chrome trace format; open it in Perfetto), the program's ``rq.``
+    spans (:func:`span`) among its host events::
 
         with profiling.trace("traces/bank"):
             bank(x0, u0, thetas)
@@ -69,28 +82,50 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class PhaseTimer:
-    """Accumulating named-phase wall timer for host-orchestrated loops
-    (CE generations, NM vertex evaluations, MPC re-plans)."""
+SPAN_PREFIX = "rq."
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+counters: collections.Counter = collections.Counter()
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
 
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": self.totals[k], "count": self.counts[k],
-                    "mean_s": self.totals[k] / self.counts[k]}
-                for k in self.totals}
+def reset_counters() -> None:
+    counters.clear()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` span ``rq.<name>`` while a
+    torch profiler records (:func:`trace`, or any ``torch.profiler.profile``
+    block); otherwise one shared no-op context::
+
+        with profiling.span("line_search"):
+            ...
+    """
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside ``span(name)``,
+    whatever its call site."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def host_sync(site: str, fn: Callable, *args):
+    """``fn(*args)``, a call that waits for the device (``bool`` of a device
+    tensor, ``torch.nonzero``), as the host sync at ``site``: counts
+    ``sync.<site>`` and opens span ``sync.<site>`` around the wait."""
+    name = "sync." + site
+    counters[name] += 1
+    with span(name):
+        return fn(*args)
 
 
 class SyncCount:

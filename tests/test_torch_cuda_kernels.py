@@ -8,8 +8,9 @@ near-breakdown cartpole fixture (D's on the lanes float32 resolves), A and B on 
 each small model's, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
 bank, the fused flags on a problem with no tile model, a bank from numpy
-inputs, and the host-sync and busy-time helpers, on a CUDA device (skipped
-without one).
+inputs, the host-sync and busy-time helpers, and that every host sync of
+a warm re-plan runs through one of the bank's counted sites, on a CUDA
+device (skipped without one).
 
 This file imports no JAX, so it also runs on a machine that has none:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -564,3 +565,32 @@ def test_sync_count_and_device_busy(device):
     out, wall, busy = device_busy(lambda: x.cumsum(0))
     assert float(out[-1]) == float(1 << 20)
     assert 0 < busy <= wall
+
+
+@pytest.mark.parametrize("model,n,m,T", [("unicycle", 3, 2, 30),
+                                         ("quadrotor", 12, 4, 50)])
+def test_every_host_sync_of_a_replan_has_a_site(device, model, n, m, T):
+    """Over one warm re-plan of a fused bank (the benchmark's solver
+    settings), the bank's sync sites (``profiling.counters["sync.*"]``)
+    and the two fetches of its value and flags are every host sync
+    PyTorch's sync debug mode reports."""
+    from ratilqr_tpu_torch import ILEQGConfig, models
+    from ratilqr_tpu_torch.solvers.ileqg import make_batched_solver
+    from ratilqr_tpu_torch.utils import profiling
+    prob = getattr(models, model)(N=T, dtype=torch.float32, device=device)
+    bank = make_batched_solver(prob, ILEQGConfig(
+        fused_step_optimize=True, fused_candidate_eval=True,
+        adaptive_eps_init=True, eps_history_cap=0))
+    thetas = torch.linspace(0.0, 0.01, 1024, device=device)
+    x0 = torch.zeros(n, device=device)
+    u_warm = bank(x0, torch.zeros(T, m, device=device), thetas).l[0]
+    bank(x0 + 1e-5, u_warm, thetas).value.cpu()   # first warm re-plan
+    x1 = x0 - 1e-5
+    profiling.reset_counters()
+    with profiling.count_host_syncs() as syncs:
+        res = bank(x1, u_warm, thetas)
+        res.value.cpu(), res.failed.cpu()
+    sites = {k: v for k, v in profiling.counters.items()
+             if k.startswith("sync.")}
+    assert profiling.counters["iterations"] >= 1
+    assert sum(sites.values()) + 2 == syncs.n, sites
