@@ -148,34 +148,49 @@ def approximate_folded(problem: RiskSensitiveProblem, x_ref: Tensor,
     meaning of the fused candidate kernel.
 
     With ``L_traj`` the policy ``u = l + L(x − x̄)`` is rolled out around
-    ``x_ref (B, T+1, n)`` and folded with ``mu (B,)``; without it
-    ``x_ref`` is the initial state ``(B, n)`` and the rollout is open loop
-    (the fold degenerates to the raw stack).
+    ``x_ref (B, T+1, n)`` and folded with ``mu (B,)``
+    (:func:`fold_rollout`); without it ``x_ref`` is the initial state
+    ``(B, n)`` and the rollout is open loop (the fold degenerates to the
+    raw stack).
     """
-    fold = L_traj is not None
-    if fold and mu is None:
-        raise ValueError("approximate_folded: mu is required when L_traj "
-                         "is given; pass zeros for an unregularized "
-                         "evaluation")
-    if fold:
-        x_traj, u_traj, A, B = rollout_feedback_with_jac(
-            problem, x_ref, l_traj, L_traj)
-        q, q_vec, Q, r, R, P = _stage_derivatives(problem, x_traj[:, :-1],
-                                                  u_traj, True)
-        Lt = smallmat.mt(L_traj)
-        q_vec = q_vec + smallmat.mv(Lt, r)
-        LtP = smallmat.mm(Lt, P)
-        Q = sym(Q + LtP + smallmat.mt(LtP)
-                + smallmat.mm(Lt, smallmat.mm(R, L_traj))
-                + mu[:, None, None, None] * smallmat.mm(Lt, L_traj))
-        A = A + smallmat.mm(B, L_traj)
-    else:
-        x_traj, A, _ = rollout_open_loop_with_jac(problem, x_ref, l_traj)
-        q, q_vec, Q = _stage_derivatives(problem, x_traj[:, :-1], l_traj,
-                                         False)
+    if L_traj is not None:
+        if mu is None:
+            raise ValueError("approximate_folded: mu is required when "
+                             "L_traj is given; pass zeros for an "
+                             "unregularized evaluation")
+        return fold_rollout(problem, rollout_feedback_with_jac(
+            problem, x_ref, l_traj, L_traj), L_traj, mu, noise)
+    x_traj, A, _ = rollout_open_loop_with_jac(problem, x_ref, l_traj)
+    q, q_vec, Q = _stage_derivatives(problem, x_traj[:, :-1], l_traj, False)
+    return _folded_stack(problem, x_traj, q, q_vec, Q, A, noise)
+
+
+def fold_rollout(problem: RiskSensitiveProblem, rollout, L_traj: Tensor,
+                 mu: Tensor, noise: Optional[NoiseModel] = None
+                 ) -> FoldedApprox:
+    """Quadratize and fold a closed-loop rollout ``(x (B, T+1, n), u (B, T,
+    m), A, B)`` of :func:`~ratilqr_tpu_torch.ops.rollout.
+    rollout_feedback_with_jac` under gains ``L_traj`` with ``mu (B,)``;
+    the caller keeps the rollout's states."""
+    x_traj, u_traj, A, B = rollout
+    q, q_vec, Q, r, R, P = _stage_derivatives(problem, x_traj[:, :-1],
+                                              u_traj, True)
+    Lt = smallmat.mt(L_traj)
+    q_vec = q_vec + smallmat.mv(Lt, r)
+    LtP = smallmat.mm(Lt, P)
+    Q = sym(Q + LtP + smallmat.mt(LtP)
+            + smallmat.mm(Lt, smallmat.mm(R, L_traj))
+            + mu[:, None, None, None] * smallmat.mm(Lt, L_traj))
+    A = A + smallmat.mm(B, L_traj)
+    return _folded_stack(problem, x_traj, q, q_vec, Q, A, noise)
+
+
+def _folded_stack(problem, x_traj, q, q_vec, Q, A, noise) -> FoldedApprox:
+    """The folded stack with the terminal cost at ``x_traj[:, -1]`` and the
+    noise model (computed where ``noise`` is None)."""
     if noise is None:
-        noise = noise_model(problem, l_traj.shape[1], l_traj.dtype,
-                            l_traj.device)
+        noise = noise_model(problem, q.shape[1], x_traj.dtype,
+                            x_traj.device)
     q_term, q_vec_term, Q_term = _terminal(problem, x_traj[:, -1])
     return FoldedApprox(q=q, q_vec=q_vec, Q=Q, A=A, W=noise.W,
                         W_inv=noise.W_inv, logdet_W=noise.logdet_W,

@@ -12,6 +12,12 @@ followed by the folded evaluating core (``candidate_pallas.py:427-432``) —
 for a bank on the CPU.  A problem with no tile model runs that composition
 with the folded Riccati dispatch (kernel D on CUDA), as JAX runs its XLA
 folded path without a tile model (``candidate_pallas.py:442-458``).
+
+Besides the value and the fail flag every path returns the states of the
+candidate's closed-loop rollout, ``x (B, T+1, n)``: on CUDA a view of the
+lane-minor buffer kernel C writes them to, elsewhere the states of the
+composition's own rollout.  The line search takes the accepted candidate's
+trajectory from them instead of rolling it out again.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ratilqr_tpu_torch.ops import _build, riccati_cuda
-from ratilqr_tpu_torch.ops.approx import NoiseModel, approximate_folded
+from ratilqr_tpu_torch.ops.approx import NoiseModel, fold_rollout
+from ratilqr_tpu_torch.ops.rollout import rollout_feedback_with_jac
 from ratilqr_tpu_torch.ops.tile_model import device_model
 from ratilqr_tpu_torch.utils.profiling import span, spanned
 
@@ -31,12 +38,16 @@ KERNEL = "candidate"
 class CandidateOut(NamedTuple):
     value: Tensor   # (B,)
     m_fail: Tensor  # (B,) bool: neurotic breakdown
+    x: Tensor       # (B, T+1, n): the candidate's closed-loop rollout
 
 
 def _composition(dp, problem, x_ref, l_cand, L, mu, theta, noise
                  ) -> CandidateOut:
-    folded = approximate_folded(problem, x_ref, l_cand, L, mu, noise)
-    return CandidateOut(*dp(folded, theta))
+    """``approximate_folded`` with its rollout's states kept, then the
+    folded evaluating pass ``dp``."""
+    rollout = rollout_feedback_with_jac(problem, x_ref, l_cand, L)
+    folded = fold_rollout(problem, rollout, L, mu, noise)
+    return CandidateOut(*dp(folded, theta), rollout[0])
 
 
 def candidate_bank_plain(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
@@ -54,7 +65,8 @@ def candidate_bank(problem, x_ref: Tensor, l_cand: Tensor, L: Tensor,
     """Evaluate a bank of candidates: closed-loop rollout of ``l_cand
     (B, T, m)`` under gains ``L (B, T, m, n)`` around ``x_ref (B, T+1, n)``,
     quadratize, fold with ``mu (B,)``, folded evaluating DP with ``theta
-    (B,)``.  A problem with no tile model takes the composition through
+    (B,)``; returns the value, the fail flag and the rollout's states.  A
+    problem with no tile model takes the composition through
     :func:`~ratilqr_tpu_torch.ops.riccati_cuda.riccati_bank_folded`; on
     CUDA a tile model needs a device model."""
     if problem.tile_model is None:
@@ -119,18 +131,20 @@ def first_widths(model_id: int, dtype, B_max: int = 1 << 30
 def launch_candidate(tm, ins, entry=None) -> CandidateOut:
     """Launch kernel C on arguments prepared by :func:`candidate_layout`;
     ``entry`` is another build's C entry point of the same type (the
-    shipped library's by default)."""
+    shipped library's by default).  The states are returned as the
+    ``(B, T+1, n)`` view of the kernel's lane-minor ``(T+1, n, B)``
+    buffer, not copied."""
     (T1, n, Bn), T = ins[0].shape, ins[1].shape[0]
     dtype, device = ins[0].dtype, ins[0].device
-    x_scratch = torch.empty((T1, n, Bn), dtype=dtype, device=device)
+    x = torch.empty((T1, n, Bn), dtype=dtype, device=device)
     value = torch.empty(Bn, dtype=dtype, device=device)
     m_fail = torch.empty(Bn, dtype=torch.bool, device=device)
     params = _build.params_array(tm.params)
     launch = entry or _build.entry(KERNEL, dtype)
     with span("launch.candidate"), torch.cuda.device(device):
         rc = launch(tm.model_id, Bn, T, params, *map(_build.ptr, ins),
-                    *map(_build.ptr, (x_scratch, value, m_fail)),
+                    *map(_build.ptr, (x, value, m_fail)),
                     _build.stream_of(value))
     _build.check(rc, KERNEL)
     _build.launch_counts[KERNEL] += 1
-    return CandidateOut(value, m_fail)
+    return CandidateOut(value, m_fail, x.movedim(-1, 0))

@@ -189,7 +189,10 @@ def _riccati_folded_core(fa, theta: Tensor) -> Tuple[Tensor, Tensor]:
 
 def select(mask: Tensor, new, old):
     """``where(mask, new, old)`` per lane over tensors and (named) tuples;
-    ``mask`` is ``(B,)`` and broadcasts over trailing dims."""
+    ``mask`` is ``(B,)`` and broadcasts over trailing dims; a field that is
+    None in both stays None."""
+    if new is None and old is None:
+        return None
     if isinstance(new, tuple):
         vals = [select(mask, a, b) for a, b in zip(new, old)]
         return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)

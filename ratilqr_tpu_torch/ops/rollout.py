@@ -54,6 +54,20 @@ def feedback_control(l_t: Tensor, L_t: Tensor, x: Tensor,
     return l_t + (L_t * (x - x_ref_t).unsqueeze(-2)).sum(-1)
 
 
+def feedback_control_traj(l_traj: Tensor, L_traj: Tensor, x_traj: Tensor,
+                          x_ref: Tensor) -> Tensor:
+    """:func:`feedback_control` at every step of a bank's trajectories at
+    once: ``l (B, T, m)``, ``L (B, T, m, n)``, ``x``/``x_ref (B, T, n)``.
+    ``L (x − x̄)`` is accumulated one state component at a time, so no
+    ``(B, T, m, n)`` product is made, and on the kernels' lane-minor
+    layouts every operation reads whole runs of lanes."""
+    dx = x_traj - x_ref
+    acc = L_traj[..., 0] * dx[..., :1]
+    for c in range(1, dx.shape[-1]):
+        acc.addcmul_(L_traj[..., c], dx[..., c:c + 1])
+    return l_traj + acc
+
+
 @spanned("rollout_open_loop")
 def rollout_open_loop(problem: RiskSensitiveProblem, x0: Tensor,
                       u_traj: Tensor) -> Tensor:

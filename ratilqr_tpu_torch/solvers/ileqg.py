@@ -31,6 +31,16 @@ kernel D; on the CPU they run their plain versions.  The bank runs on the
 problem's device.  Candidate evaluation
 follows the JAX precedence: ``fused_candidate_eval``, then
 ``fold_candidate_eval``, then the unfolded composition.
+
+With ``fused_candidate_eval`` the bank carries the nominal trajectory
+``x``, the open-loop rollout of ``l`` from ``x0``: ``initialize`` takes it
+from its candidate evaluation (L = 0), the line search from the states of
+each lane's accepted candidate, whose controls it computes along them in
+one batched feedback product, and the result returns it.  The other two
+paths re-derive it from ``(x0, l)``: the line search re-rolls the accepted
+candidate out (``rollout_feedback``) and the result rolls ``l`` out
+(``rollout_open_loop``).  The counters ``rollouts_reused`` and
+``rollouts_run`` count those trajectories by where they came from.
 """
 from __future__ import annotations
 
@@ -45,7 +55,8 @@ from ratilqr_tpu_torch.ops.approx import (NoiseModel, approximate_folded,
 from ratilqr_tpu_torch.ops.candidate_cuda import candidate_bank
 from ratilqr_tpu_torch.ops.riccati import (dp_evaluate, dp_evaluate_folded,
                                            dp_optimize, select)
-from ratilqr_tpu_torch.ops.rollout import (rollout_feedback,
+from ratilqr_tpu_torch.ops.rollout import (feedback_control_traj,
+                                           rollout_feedback,
                                            rollout_feedback_with_jac,
                                            rollout_open_loop,
                                            rollout_open_loop_with_jac)
@@ -74,8 +85,11 @@ class ILEQGResult(NamedTuple):
 
 
 class ILEQGState(NamedTuple):
-    """Outer-iteration state of a bank (``ileqg.py:_State``); the nominal
-    trajectory is not carried but re-derived from ``(x0, l)``."""
+    """Outer-iteration state of a bank (``ileqg.py:_State``).  With
+    ``fused_candidate_eval`` it carries the nominal trajectory ``x (B, T+1,
+    n)``, the open-loop rollout of ``l`` from ``x0`` (a view of kernel C's
+    lane-minor states on CUDA); on the other paths ``x`` is None and the
+    trajectory is re-derived from ``(x0, l)``."""
     l: Tensor
     L: Tensor
     value: Tensor
@@ -88,6 +102,7 @@ class ILEQGState(NamedTuple):
     eps_count: Tensor
     done: Tensor
     failed: Tensor
+    x: Optional[Tensor] = None
 
 
 def _push_hist(hist: Tensor, count: Tensor, valid: Tensor, eps: Tensor,
@@ -128,6 +143,10 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
     every other, so all lanes that leave a round that leaves trials in the
     budget took a rung: ``accepted_lanes`` counts them from the rounds'
     widths, with no sync, and leaves out the round that spends the budget.
+
+    With ``fused_candidate_eval`` each round keeps the states of every
+    taking lane's first taken rung, and the accepted controls are computed
+    along them; otherwise the accepted candidate is rolled out again.
     """
     lam = config.lam
     c = config.ls_chunk
@@ -137,16 +156,18 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
     steps = torch.arange(c, device=rungs.device)
 
     def eval_candidate(lanes, eps):
-        """Values and ``evaluated`` flags of candidates ``l + ε·dl`` of the
-        bank lanes ``lanes`` (None: every lane, in order)."""
+        """Values, ``evaluated`` flags and (fused; else None) rollout
+        states of candidates ``l + ε·dl`` of the bank lanes ``lanes``
+        (None: every lane, in order)."""
         def pick(x):
             return x if lanes is None else x[lanes]
         L, mu, th, xr = pick(state.L), pick(state.mu), pick(theta), pick(x_ref)
         l_cand = pick(state.l) + eps[:, None, None] * pick(dl)
         if config.fused_candidate_eval:
-            value_new, fail = candidate_bank(problem, xr, l_cand, L, mu, th,
-                                             noise)
-        elif config.fold_candidate_eval:
+            value_new, fail, x_new = candidate_bank(problem, xr, l_cand, L,
+                                                    mu, th, noise)
+            return value_new, ~fail, x_new
+        if config.fold_candidate_eval:
             folded = approximate_folded(problem, xr, l_cand, L, mu, noise)
             value_new, fail = dp_evaluate_folded(folded, theta=th)
         else:
@@ -156,7 +177,7 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
                                        noise)
             value_new, fail = dp_evaluate(approx, L, None, theta=th, mu=mu,
                                           slim=True)
-        return value_new, ~fail
+        return value_new, ~fail, None
 
     eps = state.eps_init_cur.clone()
     count = torch.zeros_like(state.iterations)
@@ -164,6 +185,10 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
     eps_acc = torch.zeros_like(eps)
     value_c = state.value.clone()
     hist, hist_n = state.eps_hist.clone(), state.eps_count.clone()
+    # The states of each lane's accepted rung, its pre-search states where
+    # it took none, so they equal select(accepted, x_acc, state.x); None on
+    # the paths that carry no trajectory.
+    x_acc = state.x
     trials, R_prev = 0, 0   # the running lanes' trials so far, last width
     while True:
         running = ~accepted & (count < config.ls_max_trials)
@@ -181,7 +206,7 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
         with span("ls_round"):
             ladder = eps[r, None] * rungs                          # (R, c)
             every = c == 1 and R == Bn
-            values, evaluated = eval_candidate(
+            values, evaluated, x_round = eval_candidate(
                 None if every else r.repeat_interleave(c),
                 ladder.reshape(-1))
             values = values.reshape(R, c)
@@ -218,11 +243,24 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
             accepted[r] = accepted[r] | has_take
             eps[r] = eps_next
             count[r] = cnt + n_exec
+            if x_round is not None and every:   # the bank's lanes, in order
+                x_acc = torch.where(has_take[:, None, None], x_round, x_acc)
+            elif x_round is not None:   # lane r_j's first take: j·c + first_j
+                rows = torch.arange(R, device=r.device) * c + first[:, 0]
+                x_acc = x_acc.index_put((r,), torch.where(
+                    has_take[:, None, None], x_round[rows], x_acc[r]))
 
-    # Re-materialize the accepted candidate's realized controls (lanes that
-    # accepted nothing have eps_acc = 0 and keep the pre-search state).
+    # The accepted candidate's realized controls (lanes that accepted
+    # nothing have eps_acc = 0 and keep the pre-search state): along the
+    # states its evaluation kept, or from a re-materializing rollout.
     l_acc = state.l + eps_acc[:, None, None] * dl
-    _, u_n = rollout_feedback(problem, x_ref, l_acc, state.L)
+    if x_acc is None:
+        counters["rollouts_run"] += 1
+        _, u_n = rollout_feedback(problem, x_ref, l_acc, state.L)
+    else:
+        counters["rollouts_reused"] += 1
+        u_n = feedback_control_traj(l_acc, state.L, x_acc[:, :-1],
+                                    x_ref[:, :-1])
     d_n = max_control_deviation(state.l, u_n)
 
     if config.adaptive_eps_init:  # ileqg.jl:582-591
@@ -241,7 +279,7 @@ def line_search(problem: RiskSensitiveProblem, config: ILEQGConfig,
         eps_init_next = state.eps_init_cur
 
     return state._replace(
-        l=select(accepted, u_n, state.l), value=value_c,
+        l=select(accepted, u_n, state.l), x=x_acc, value=value_c,
         d_current=torch.where(accepted, d_n, state.d_current),
         eps_hist=hist, eps_count=hist_n, eps_init_cur=eps_init_next,
         failed=state.failed | ~accepted)
@@ -286,19 +324,20 @@ def initialize(problem: RiskSensitiveProblem, config: ILEQGConfig,
     dtype, device = x0.dtype, x0.device
     L = torch.zeros((Bn, T, m, n), dtype=dtype, device=device)
     zeros = torch.zeros(Bn, dtype=dtype, device=device)
+    x = None
     if config.fused_candidate_eval:
         # With L = 0 the closed-loop candidate is the open-loop rollout of
-        # u_init from x̄_0 = x0.
+        # u_init from x̄_0 = x0: its states are the nominal trajectory.
         x_ref0 = x0[:, None, :].expand(Bn, T + 1, n).contiguous()
-        value0, fail = candidate_bank(problem, x_ref0, u_init, L, zeros,
-                                      theta, noise)
+        value0, fail, x = candidate_bank(problem, x_ref0, u_init, L, zeros,
+                                         theta, noise)
     elif config.fold_candidate_eval:
         # The open-loop fold (L = 0) is the raw (q, q_vec, Q, A) stack.
         folded = approximate_folded(problem, x0, u_init, noise=noise)
         value0, fail = dp_evaluate_folded(folded, theta=theta)
     else:
-        x, A, B = rollout_open_loop_with_jac(problem, x0, u_init)
-        approx = approximate_model(problem, u_init, x, A, B, noise)
+        x_nom, A, B = rollout_open_loop_with_jac(problem, x0, u_init)
+        approx = approximate_model(problem, u_init, x_nom, A, B, noise)
         value0, fail = dp_evaluate(approx, L, None, theta=theta, mu=zeros,
                                    slim=True)
     i0 = torch.zeros(Bn, dtype=torch.int32, device=device)
@@ -310,7 +349,7 @@ def initialize(problem: RiskSensitiveProblem, config: ILEQGConfig,
         iterations=i0,
         eps_hist=torch.zeros((Bn, config.eps_history_cap, 2), dtype=dtype,
                              device=device),
-        eps_count=i0.clone(), done=fail, failed=fail)
+        eps_count=i0.clone(), done=fail, failed=fail, x=x)
 
 
 def solve_bank(problem: RiskSensitiveProblem, config: ILEQGConfig,
@@ -339,7 +378,12 @@ def solve_bank(problem: RiskSensitiveProblem, config: ILEQGConfig,
     value = torch.where(state.failed, torch.full_like(state.value,
                                                       float("inf")),
                         state.value)
-    x_final = rollout_open_loop(problem, x0, state.l)
+    if state.x is None:
+        counters["rollouts_run"] += 1
+        x_final = rollout_open_loop(problem, x0, state.l)
+    else:
+        counters["rollouts_reused"] += 1
+        x_final = state.x
     return ILEQGResult(x=x_final, l=state.l, L=state.L, value=value,
                        eps_history=state.eps_hist, eps_count=state.eps_count,
                        iterations=state.iterations, d_final=state.d_current,

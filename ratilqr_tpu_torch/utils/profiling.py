@@ -12,8 +12,10 @@ solver bank, the stages, the kernel wrappers' layout copies and launches,
 the rollouts, the kernel build) while a ``torch.profiler`` records, so they
 lie on the profiler's clock beside the device trace; otherwise a span is
 one check.  :data:`counters` always counts: bank calls, iterations,
-line-search rounds and lanes, μ-restarts, library loads and each host
-sync by its site (``sync.<site>``).  Kernel launches are counted in
+line-search rounds and lanes, μ-restarts, library loads, each host sync by
+its site (``sync.<site>``), and the bank's trajectories by their source
+(``rollouts_reused``: taken from a candidate evaluation's states;
+``rollouts_run``: a plain rollout run again).  Kernel launches are counted in
 ``ops._build.launch_counts``.
 """
 from __future__ import annotations

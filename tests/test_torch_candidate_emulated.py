@@ -11,7 +11,9 @@ LQR, the cartpole) run one solve per team of K lanes, K = 4 or 1: each
 K from a build that fixes it (``-DRQ_SMALL_LANES=K``) over a lone solve,
 one block and a ragged bank of several blocks, and from the shipped build,
 whose launch picks K from the bank's width and the card's SM count (the
-emulated card's, set through ``rq_emu_set_sm_count``).  Tolerances are
+emulated card's, set through ``rq_emu_set_sm_count``).  Each compares the
+value and the states of the closed-loop rollout the kernel returns.
+Tolerances are
 ``kernel_check``'s: float64 within 1e-10, float32 within the JAX
 tolerances plus the per-θ drift rule, fail flags equal, every θ = 1e6
 lane latched.  The card's own checks are
@@ -93,14 +95,14 @@ def _launch_shape(lib, dtype, model, B):
 def _run(entry, args) -> CandidateOut:
     tm, ins = candidate_layout(*args)
     (T1, n, B), T = ins[0].shape, ins[1].shape[0]
-    x_scratch = torch.empty((T1, n, B), dtype=ins[0].dtype)
+    x = torch.empty((T1, n, B), dtype=ins[0].dtype)
     value = torch.empty(B, dtype=ins[0].dtype)
     m_fail = torch.empty(B, dtype=torch.bool)
     rc = entry(tm.model_id, B, T, _build.params_array(tm.params),
-               *(x.data_ptr() for x in ins), x_scratch.data_ptr(),
+               *(a.data_ptr() for a in ins), x.data_ptr(),
                value.data_ptr(), m_fail.data_ptr(), None)
     assert rc == 0, rc
-    return CandidateOut(value, m_fail)
+    return CandidateOut(value, m_fail, x.movedim(-1, 0))
 
 
 def _check(entries, model, T, B, dtype):
@@ -112,7 +114,7 @@ def _check(entries, model, T, B, dtype):
         prob64, noise64 = kc._problem64(model, T, "cpu")
         ref = candidate_bank_plain(prob64, *map(kc._f64, args[1:-1]),
                                    noise64)
-    kc._compare(got, want, ref, args[5], [("value", "value")], dtype)
+    kc._compare(got, want, ref, args[5], kc.CANDIDATE_FIELDS, dtype)
     assert bool(got.m_fail[args[5] == 1e6].all())
 
 

@@ -3,7 +3,9 @@ LQR, the cartpole, the n=12 quadrotor, and kernels A and D at a shape built
 at its first use), kernels A's, B's, C's and D's one-solve-per-team designs
 on the quadrotor at the edges of their blocks (A also at B=262,144),
 kernels A's, B's, C's and D's few-lane designs at n <= 4 at widths that
-take each of their lanes a solve (4 and 1), their fail flags on the
+take each of their lanes a solve (4 and 1), kernel C's returned states
+against the plain closed-loop rollout and a fused bank's against the
+rollout of its controls, their fail flags on the
 near-breakdown cartpole fixture (D's on the lanes float32 resolves), A and B on the n=12 h_fail fixture and on
 each small model's, which shapes kernels A and D solve per team,
 the folded-evaluation bank against the fused-candidate
@@ -17,6 +19,8 @@ This file imports no JAX, so it also runs on a machine that has none:
 tests/test_torch_cuda_kernels.py``.  ``chip_smoke.py`` makes the same
 checks at the main path's shapes.
 """
+from typing import NamedTuple
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -343,6 +347,81 @@ def test_candidate_small_kernel_at_each_lane_width(device, model, T, lanes,
     from ratilqr_tpu_torch.ops.candidate_cuda import first_widths
     B = 133 if lanes == 4 else first_widths(SMALL_C[model], dtype)[1]
     kc.check_candidate(model, T, B, dtype, device)
+
+
+class _States(NamedTuple):
+    x: torch.Tensor        # (B, T+1, n)
+    m_fail: torch.Tensor   # (B,): no lane failed
+
+
+def _assert_states_close(x, want, ref, theta, dtype):
+    """``x`` against the plain rollout ``want`` by ``kernel_check``'s
+    trajectory tolerance, in float32 with the drift rule against its
+    float64 run ``ref``."""
+    none = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    kc._compare(_States(x, none), _States(want, none),
+                None if ref is None else _States(ref, none), theta,
+                [("x", "traj")], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("model,T,lanes", [
+    ("quadrotor", 50, 16), ("unicycle", 20, 4), ("unicycle", 20, 1),
+    ("cartpole", 30, 4), ("cartpole", 30, 1)])
+def test_candidate_kernel_states_are_its_closed_loop_rollout(
+        device, model, T, lanes, dtype):
+    """Kernel C returns the states it rolled out: ``rollout_feedback`` of
+    the same ``l_cand``, ``L`` and ``x_ref``, on the quadrotor's team design
+    and at n <= 4 at a width of 4 lanes a solve (a ragged 133) and of 1 (the
+    first such width on this card)."""
+    from ratilqr_tpu_torch.ops.candidate_cuda import (candidate_bank,
+                                                      first_widths)
+    from ratilqr_tpu_torch.ops.rollout import rollout_feedback
+    B = (4_099 if model == "quadrotor" else 133 if lanes == 4
+         else first_widths(SMALL_C[model], dtype)[1])
+    prob, x_ref, l, L, mu, theta, noise = kc.candidate_inputs(
+        model, T, B, dtype, device)
+    got = candidate_bank(prob, x_ref, l, L, mu, theta, noise)
+    assert got.x.shape == (B, T + 1, x_ref.shape[-1])
+    want, _ = rollout_feedback(prob, x_ref, l, L)
+    ref = None
+    if dtype == torch.float32:
+        prob64, _ = kc._problem64(model, T, device)
+        ref, _ = rollout_feedback(prob64, *map(kc._f64, (x_ref, l, L)))
+    _assert_states_close(got.x, want, ref, theta, dtype)
+    kc.clear_caches()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("model,n,m,T", [("unicycle", 3, 2, 30),
+                                         ("quadrotor", 12, 4, 50)])
+def test_fused_bank_returns_the_rollout_of_its_controls(device, model, n, m,
+                                                        T, dtype):
+    """A fused bank's ``x`` is the open-loop rollout of its ``l`` from
+    ``x0``, taken from kernel C's states with no plain rollout."""
+    from ratilqr_tpu_torch import ILEQGConfig, models
+    from ratilqr_tpu_torch.ops.rollout import rollout_open_loop
+    from ratilqr_tpu_torch.solvers.ileqg import make_batched_solver
+    from ratilqr_tpu_torch.utils import profiling
+    prob = getattr(models, model)(N=T, dtype=dtype, device=device)
+    bank = make_batched_solver(prob, ILEQGConfig(
+        fused_step_optimize=True, fused_candidate_eval=True,
+        adaptive_eps_init=True, eps_history_cap=0))
+    thetas = torch.linspace(0.0, 0.01, 1024, dtype=dtype, device=device)
+    x0 = torch.full((n,), 0.1, dtype=dtype, device=device)
+    profiling.reset_counters()
+    res = bank(x0, torch.zeros(T, m, dtype=dtype, device=device), thetas)
+    assert profiling.counters["rollouts_reused"] == (
+        profiling.counters["iterations"] + 1)
+    assert profiling.counters["rollouts_run"] == 0
+    x0s = x0.expand(thetas.shape[0], n)
+    want = rollout_open_loop(prob, x0s, res.l)
+    ref = None
+    if dtype == torch.float32:
+        prob64 = getattr(models, model)(N=T, dtype=torch.float64,
+                                        device=device)
+        ref = rollout_open_loop(prob64, x0s.double(), res.l.double())
+    _assert_states_close(res.x, want, ref, thetas, dtype)
 
 
 def test_candidate_near_breakdown_flag_cartpole(device):

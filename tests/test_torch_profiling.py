@@ -136,11 +136,13 @@ def test_bank_spans_nest_and_match_the_counters(tmp_path, name):
                          ("ls_round", "line_search"),
                          ("sync.bank.active", "bank"),
                          ("sync.ls.running", "line_search"),
-                         ("sync.mu.need", "iteration"),
-                         ("rollout_feedback", "line_search"),
-                         ("rollout_open_loop", "bank")):
+                         ("sync.mu.need", "iteration")):
         assert _inside(spans, inner, outer), (inner, outer)
     if name.startswith("fused"):
+        # the trajectories come from the candidate evaluations' states
+        assert count["rollout_feedback"] == count["rollout_open_loop"] == 0
+        assert counters["rollouts_reused"] == counters["iterations"] + 1
+        assert counters["rollouts_run"] == 0
         assert _inside(spans, "step_optimize", "iteration")
         assert _inside(spans, "candidate_bank", "ls_round", "initialize")
         assert _inside(spans, "eps_restore", "line_search")
@@ -148,6 +150,12 @@ def test_bank_spans_nest_and_match_the_counters(tmp_path, name):
         assert count["step_optimize"] == counters["iterations"]
         assert count["candidate_bank"] == counters["ls_rounds"] + 1
     else:
+        assert _inside(spans, "rollout_feedback", "line_search")
+        assert _inside(spans, "rollout_open_loop", "bank")
+        assert count["rollout_feedback"] == counters["iterations"]
+        assert count["rollout_open_loop"] == 1
+        assert counters["rollouts_run"] == counters["iterations"] + 1
+        assert counters["rollouts_reused"] == 0
         assert _inside(spans, "rollout_feedback_with_jac", "ls_round")
         assert _inside(spans, "rollout_open_loop_with_jac", "iteration",
                        "initialize")
